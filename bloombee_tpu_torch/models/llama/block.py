@@ -1,0 +1,151 @@
+"""Llama transformer block as a plain function (port of
+bloombee_tpu/models/llama/block.py).
+
+Weight convention (kept from the JAX package): projection matrices are
+stored [in_features, out_features] and applied as `x @ w`, the transpose of
+torch `nn.Linear`. Converting JAX parameters is therefore a dtype/device
+copy with nothing transposed.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from bloombee_tpu_torch.models.spec import ModelSpec
+from bloombee_tpu_torch.ops import apply_rotary, masked_attention, rms_norm
+from bloombee_tpu_torch.ops import silu_mlp
+from bloombee_tpu_torch.ops.attention import causal_mask
+from bloombee_tpu_torch.utils.device import resolve_device
+
+# attend(q, k_new, v_new) -> (attn_out, aux); shapes
+#   q: [B, T, H, hd], k_new/v_new: [B, T, Hkv, hd], attn_out: [B, T, H, hd]
+Attend = Callable[
+    [torch.Tensor, torch.Tensor, torch.Tensor], tuple[torch.Tensor, Any]
+]
+
+
+def init_block_params(
+    generator: torch.Generator,
+    spec: ModelSpec,
+    dtype=torch.float32,
+    device="cuda",
+) -> dict:
+    """Random block parameters: N(0, 1/D) projections (drawn in f32 on the
+    generator's device), unit norms. The generator must live on `device`."""
+    device = resolve_device(device)
+    d, i = spec.hidden_size, spec.intermediate_size
+    h, kv, hd = spec.num_attention_heads, spec.num_key_value_heads, spec.head_dim
+    scale = d**-0.5
+
+    def w(shape):
+        x = torch.randn(
+            shape, generator=generator, device=device, dtype=torch.float32
+        )
+        return (x * scale).to(dtype)
+
+    return {
+        "input_layernorm": torch.ones((d,), dtype=dtype, device=device),
+        "post_attention_layernorm": torch.ones((d,), dtype=dtype, device=device),
+        "q_proj": w((d, h * hd)),
+        "k_proj": w((d, kv * hd)),
+        "v_proj": w((d, kv * hd)),
+        "o_proj": w((h * hd, d)),
+        "gate_proj": w((d, i)),
+        "up_proj": w((d, i)),
+        "down_proj": w((i, d)),
+    }
+
+
+def block_forward(
+    params: dict,
+    spec: ModelSpec,
+    hidden: torch.Tensor,  # [B, T, D]
+    cos: torch.Tensor,  # [B, T, hd]
+    sin: torch.Tensor,  # [B, T, hd]
+    attend: Attend,
+) -> tuple[torch.Tensor, Any]:
+    b, t, _ = hidden.shape
+    h, kv, hd = spec.num_attention_heads, spec.num_key_value_heads, spec.head_dim
+
+    x = rms_norm(hidden, params["input_layernorm"], spec.rms_norm_eps)
+    q = (x @ params["q_proj"]).reshape(b, t, h, hd)
+    k = (x @ params["k_proj"]).reshape(b, t, kv, hd)
+    v = (x @ params["v_proj"]).reshape(b, t, kv, hd)
+    q, k = apply_rotary(q, k, cos, sin)
+
+    attn_out, aux = attend(q, k, v)
+
+    hidden = hidden + attn_out.reshape(b, t, h * hd) @ params["o_proj"]
+    x = rms_norm(hidden, params["post_attention_layernorm"], spec.rms_norm_eps)
+    mlp_out = silu_mlp(
+        x, params["gate_proj"], params["up_proj"], params["down_proj"]
+    )
+    return hidden + mlp_out, aux
+
+
+def dense_attend(
+    past_k: torch.Tensor | None = None,  # [B, S_past, Hkv, hd]
+    past_v: torch.Tensor | None = None,
+) -> Attend:
+    """Plain causal attention with an optional dense concatenated past: the
+    local reference the paged serving path is held against."""
+
+    def attend(q, k, v):
+        if past_k is not None:
+            k_all = torch.cat([past_k, k], dim=1)
+            v_all = torch.cat([past_v, v], dim=1)
+        else:
+            k_all, v_all = k, v
+        t, s = q.shape[1], k_all.shape[1]
+        mask = causal_mask(t, offset=s - t, s=s, device=q.device)[None]
+        return masked_attention(q, k_all, v_all, mask), (k_all, v_all)
+
+    return attend
+
+
+# HF checkpoint key mapping: per-layer torch name -> (our name, transpose?)
+HF_BLOCK_KEYS = {
+    "input_layernorm.weight": ("input_layernorm", False),
+    "post_attention_layernorm.weight": ("post_attention_layernorm", False),
+    "self_attn.q_proj.weight": ("q_proj", True),
+    "self_attn.k_proj.weight": ("k_proj", True),
+    "self_attn.v_proj.weight": ("v_proj", True),
+    "self_attn.o_proj.weight": ("o_proj", True),
+    "mlp.gate_proj.weight": ("gate_proj", True),
+    "mlp.up_proj.weight": ("up_proj", True),
+    "mlp.down_proj.weight": ("down_proj", True),
+}
+
+
+def convert_hf_block_params(
+    tensors: dict, dtype=None, device="cuda"
+) -> dict:
+    """One decoder layer's HF tensors (suffix-keyed) to the port's dict,
+    projections transposed to [in, out]."""
+    device = resolve_device(device)
+    out = {}
+    for hf_key, (name, transpose) in HF_BLOCK_KEYS.items():
+        w = torch.as_tensor(tensors[hf_key])
+        if transpose:
+            w = w.t()
+        out[name] = w.to(device=device, dtype=dtype).contiguous()
+    return out
+
+
+def params_from_jax(tree, dtype=None, device="cuda") -> list[dict]:
+    """The JAX package's block parameters, given as numpy arrays — a list of
+    per-layer dicts, or one dict stacked with a leading L — as the port's
+    list of per-layer dicts of tensors. Same [in, out] layout: a copy."""
+    device = resolve_device(device)
+
+    def conv(x):
+        t = torch.from_numpy(np.array(x, dtype=np.float32))
+        return t.to(device=device, dtype=dtype or torch.float32)
+
+    if isinstance(tree, dict):
+        n = len(next(iter(tree.values())))
+        tree = [{k: v[i] for k, v in tree.items()} for i in range(n)]
+    return [{k: conv(v) for k, v in layer.items()} for layer in tree]

@@ -1,0 +1,16 @@
+"""Core numeric ops: norms, rotary embeddings, attention, MLP (port of
+bloombee_tpu/ops). The Pallas kernels' counterparts live in `ops/cuda`."""
+
+from bloombee_tpu_torch.ops.attention import masked_attention, repeat_kv
+from bloombee_tpu_torch.ops.mlp import silu_mlp
+from bloombee_tpu_torch.ops.norms import rms_norm
+from bloombee_tpu_torch.ops.rotary import apply_rotary, rotary_cos_sin
+
+__all__ = [
+    "rms_norm",
+    "apply_rotary",
+    "rotary_cos_sin",
+    "masked_attention",
+    "repeat_kv",
+    "silu_mlp",
+]

@@ -1,0 +1,152 @@
+"""Transformer layer body of the paged span step, Llama spec (port of
+bloombee_tpu/runtime/layer_body.py).
+
+RMSNorm, the projections, rotary, the K/V scatter into the paged arena,
+attention and the SiLU MLP. Attention routes three ways, as in the JAX
+package, on flags the executor sets per step:
+
+- `use_paged`: the paged kernels read K/V straight off the arena (decode for
+  T=1, chunk for T>1 including tree-verify steps);
+- `use_flash`: the flash kernel over the step's gathered pages (prefill);
+- otherwise `attend_paged`, the dense masked path over gathered pages.
+
+LoRA, top-k sparse attention, ALiBi and logit soft-capping are left out of
+this slice; the executor refuses specs that need them.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from bloombee_tpu_torch.kv.arena import arena_write, gather_pages
+from bloombee_tpu_torch.models.spec import ModelSpec
+from bloombee_tpu_torch.ops import apply_rotary, rms_norm, silu_mlp
+from bloombee_tpu_torch.ops.attention import NEG_INF, repeat_kv
+from bloombee_tpu_torch.ops.cuda.flash_attention import flash_attention
+from bloombee_tpu_torch.ops.cuda.paged_attention import (
+    paged_chunk_attention,
+    paged_decode_attention,
+)
+
+
+def attn_scale(spec: ModelSpec) -> float:
+    return (
+        spec.attention_multiplier
+        if spec.attention_multiplier is not None
+        else spec.head_dim**-0.5
+    )
+
+
+def attend_paged(
+    spec: ModelSpec,
+    q: torch.Tensor,  # [B, T, H, hd]
+    k_ctx: torch.Tensor,  # [B, S, Hkv, hd]
+    v_ctx: torch.Tensor,
+    q_positions: torch.Tensor,  # [B, T]
+    total_lens: torch.Tensor,  # [B]
+    tree_mask: torch.Tensor | None,  # [B, T, T] bool
+    window: int,  # 0 = full attention
+) -> torch.Tensor:
+    """Dense masked attention over the gathered context. Probabilities are
+    cast to the input dtype before P.V, as in the JAX version."""
+    b, t = q.shape[:2]
+    s = k_ctx.shape[1]
+    key_pos = torch.arange(s, device=q.device)[None, None, :]  # [1, 1, S]
+    q_pos = q_positions.long()[:, :, None]  # [B, T, 1]
+    lens = total_lens.long()[:, None, None]
+    valid = key_pos < lens
+    mask = valid & (key_pos <= q_pos)
+    if window > 0:
+        mask = mask & (key_pos > q_pos - window)
+    if tree_mask is not None:
+        # the step's tokens sit at cache positions total-T..total-1; their
+        # mutual visibility comes from the tree mask
+        step_start = lens - t
+        in_step = (key_pos >= step_start) & (key_pos < lens)
+        rel = (key_pos - step_start).clamp(0, t - 1).expand(b, t, s)
+        tree_on_keys = torch.gather(tree_mask, 2, rel)
+        mask = torch.where(in_step, tree_on_keys & valid, mask)
+
+    n_rep = q.shape[2] // k_ctx.shape[2]
+    k_r = repeat_kv(k_ctx, n_rep)
+    v_r = repeat_kv(v_ctx, n_rep)
+    logits = torch.einsum("bthd,bshd->bhts", q, k_r).float() * attn_scale(spec)
+    logits = logits.masked_fill(~mask[:, None], NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhts,bshd->bthd", probs, v_r)
+
+
+def layer_body(
+    spec: ModelSpec,
+    page_size: int,
+    hidden: torch.Tensor,  # [B, T, D]
+    params: dict,  # one layer's params
+    k_slab: torch.Tensor,  # [S_tot, Hkv, hd], updated in place
+    v_slab: torch.Tensor,
+    cos: torch.Tensor,  # [B, T, hd]
+    sin: torch.Tensor,
+    write: tuple[torch.Tensor, torch.Tensor],  # kv.arena.write_plan
+    page_table: torch.Tensor,  # [B, NP] i32
+    q_positions: torch.Tensor,  # [B, T] i32
+    total_lens: torch.Tensor,  # [B] i32
+    tree_mask: torch.Tensor | None,  # [B, T, T] bool
+    window: int,
+    use_flash: bool = False,
+    use_paged: bool = False,
+    t_real: int | None = None,  # real step tokens when T is a padded bucket
+) -> torch.Tensor:
+    b, t, _ = hidden.shape
+    h_heads, kv_heads, hd = (
+        spec.num_attention_heads,
+        spec.num_key_value_heads,
+        spec.head_dim,
+    )
+    x = rms_norm(hidden, params["input_layernorm"], spec.rms_norm_eps)
+    q = (x @ params["q_proj"]).reshape(b, t, h_heads, hd)
+    k = (x @ params["k_proj"]).reshape(b, t, kv_heads, hd)
+    v = (x @ params["v_proj"]).reshape(b, t, kv_heads, hd)
+    q, k = apply_rotary(q, k, cos, sin)
+
+    arena_write(
+        k_slab, v_slab, None,
+        k.reshape(b * t, kv_heads, hd), v.reshape(b * t, kv_heads, hd),
+        plan=write,
+    )
+    scale = attn_scale(spec)
+    if use_paged:
+        if t == 1:
+            attn = paged_decode_attention(
+                q[:, 0], k_slab, v_slab, page_table, total_lens,
+                page_size=page_size, scale=scale, window=window,
+            )[:, None]
+        else:
+            attn = paged_chunk_attention(
+                q, k_slab, v_slab, page_table, total_lens,
+                page_size=page_size, tree_mask=tree_mask, scale=scale,
+                window=window, t_real=t_real,
+            )
+    else:
+        k_ctx = gather_pages(k_slab, page_table, page_size).to(hidden.dtype)
+        v_ctx = gather_pages(v_slab, page_table, page_size).to(hidden.dtype)
+        if use_flash:
+            attn = flash_attention(
+                q, k_ctx, v_ctx, causal=True, scale=scale,
+                starts=q_positions[:, 0].contiguous(), lens=total_lens,
+            )
+        else:
+            attn = attend_paged(
+                spec, q, k_ctx, v_ctx, q_positions, total_lens, tree_mask,
+                window,
+            )
+    attn_out = attn.reshape(b, t, h_heads * hd) @ params["o_proj"]
+    return _finish_layer(spec, params, hidden, attn_out)
+
+
+def _finish_layer(spec, params, hidden, attn_out):
+    """Residual + MLP tail shared by the dense/flash/paged attention paths
+    (Llama: sequential residual, post-attention RMSNorm, SiLU MLP)."""
+    hidden = hidden + attn_out
+    x2 = rms_norm(hidden, params["post_attention_layernorm"], spec.rms_norm_eps)
+    return hidden + silu_mlp(
+        x2, params["gate_proj"], params["up_proj"], params["down_proj"]
+    )

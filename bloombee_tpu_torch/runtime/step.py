@@ -1,0 +1,52 @@
+"""The span step: every local block over one step (port of
+bloombee_tpu/runtime/step.py `span_step_impl`).
+
+A Python loop over layers takes the place of the JAX `lax.scan`; the arena
+is updated in place. Rotary cos/sin are computed once per step from the
+positions, in fp32 like HF, and `layer_active` skips layers a session does
+not use (a session entering mid-span).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from bloombee_tpu_torch.models.spec import ModelSpec
+from bloombee_tpu_torch.ops.rotary import rotary_cos_sin
+from bloombee_tpu_torch.runtime.layer_body import layer_body
+
+
+def span_step(
+    params: list[dict],  # per-layer params
+    arena_k: torch.Tensor,  # [L, S_tot, Hkv, hd], updated in place
+    arena_v: torch.Tensor,
+    hidden: torch.Tensor,  # [B, T, D]
+    write: tuple[torch.Tensor, torch.Tensor],  # kv.arena.write_plan
+    page_table: torch.Tensor,  # [B, NP] i32
+    q_positions: torch.Tensor,  # [B, T] i32
+    total_lens: torch.Tensor,  # [B] i32
+    layer_active,  # [L] ints: run layer l iff layer_active[l]
+    tree_mask: torch.Tensor | None = None,  # [B, T, T] bool
+    *,
+    spec: ModelSpec,
+    page_size: int,
+    windows: tuple | None = None,
+    use_flash: bool = False,
+    use_paged: bool = False,
+    t_real: int | None = None,
+) -> torch.Tensor:
+    """Run all active local blocks over one step; returns the hidden
+    states."""
+    cos, sin = rotary_cos_sin(q_positions, spec.head_dim, spec.rope_theta)
+    cos = cos.to(hidden.dtype)
+    sin = sin.to(hidden.dtype)
+    for l, params_l in enumerate(params):
+        if not layer_active[l]:
+            continue
+        hidden = layer_body(
+            spec, page_size, hidden, params_l, arena_k[l], arena_v[l], cos,
+            sin, write, page_table, q_positions, total_lens, tree_mask,
+            int(windows[l]) if windows is not None else 0,
+            use_flash=use_flash, use_paged=use_paged, t_real=t_real,
+        )
+    return hidden

@@ -1,0 +1,54 @@
+"""Declared environment switches (a small copy of bloombee_tpu/utils/env.py).
+
+Every switch is declared once, next to the code that reads it, with a type,
+a default and a help string. The names keep the `BBTPU_` prefix, so one
+environment configures both packages the same way. Reads are uncached:
+whoever reads a switch decides when (the executor reads its thresholds
+when it is built).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import os
+
+logger = logging.getLogger(__name__)
+
+
+@dataclasses.dataclass(frozen=True)
+class Flag:
+    name: str
+    kind: type  # int | float | str
+    default: object
+    help: str
+
+
+_REGISTRY: dict[str, Flag] = {}
+
+
+def declare(name: str, kind: type, default, help_: str) -> Flag:
+    flag = Flag(name, kind, default, help_)
+    _REGISTRY[name] = flag
+    return flag
+
+
+def _parse(flag: Flag, raw: str):
+    try:
+        return flag.kind(raw)
+    except ValueError:
+        logger.warning(
+            "ignoring unparsable %s=%r (want %s)", flag.name, raw,
+            flag.kind.__name__,
+        )
+        return flag.default
+
+
+def get(name: str):
+    """Read a declared switch from the environment (or its default); an
+    undeclared name is a typo and raises KeyError."""
+    flag = _REGISTRY[name]
+    raw = os.environ.get(flag.name)
+    if raw is None:
+        return flag.default
+    return _parse(flag, raw)

@@ -1,0 +1,693 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (`bloombee_tpu_torch`) on one GPU.
+
+    python3 chip_smoke.py            # all phases, one CUDA device
+    python3 chip_smoke.py --quick    # phases 1-2 only (build + kernel checks)
+    python3 chip_smoke.py --profile  # all phases + torch.profiler breakdowns
+
+Phases:
+1. Build the three CUDA kernels from `bloombee_tpu_torch/ops/cuda/csrc/`
+   with nvcc for sm_90a (both sources compile in parallel).
+2. Hold each kernel against its plain PyTorch version on the card at
+   Llama-3-8B head geometry (H=32, Hkv=8, hd=128, page_size 16): f32 max abs
+   error <= 1e-4; bf16 max abs error <= 2e-2 on unit-scale inputs and, for
+   every element, <= 1e-2 x |plain| + 1e-3; shapes include a
+   sliding window, a lens=0 row and a tree-mode chunk, plus small cases of
+   every other compiled geometry (hd 64; GQA groups 1, 2, 8). Times each
+   kernel, its plain version and (flash) the library call computing the
+   same function, with CUDA events after warmup.
+3. The executor's path in f32 (TF32 off) at full Llama-3-8B width, 4
+   layers, random weights from a seeded generator: a 1000-token prefill of
+   batch 2, 8 greedy decodes and a 24-token follow-up must match
+   `block_forward` + `dense_attend` over the whole sequence (max abs error
+   <= 1e-3 x the reference's max abs value) with identical greedy tokens.
+4. Serving run in bf16: the whole Llama-3-8B (32 layers, full width),
+   1024 arena pages. Four sessions allocated through `CacheManager.allocate`
+   each prefill 1000 tokens (chunks of 512 + 488 -> flash), then 32
+   `decode_group` steps (-> paged decode), one 24-token follow-up turn and
+   one 8-token tree-verify step (-> paged chunk). Launch counts are reset
+   just before this path and read just after it (before any profiling);
+   they must show every kernel launched.
+
+Prints the card's name and power limit, per-phase results, a
+`{"kernels": [...]}` line, and as its last line
+`{"ok": true, "device": {...}}`. Any failed phase exits non-zero with no
+result line; so does a machine without CUDA or a directory without the
+package.
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import contextlib
+import json
+import pathlib
+import subprocess
+import sys
+import time
+import traceback
+
+REPO = pathlib.Path(__file__).resolve().parent
+H, HKV, HD, PS = 32, 8, 128, 16
+PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
+PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense, FLOP/s
+SOURCES = ("flash_attention", "paged_attention")
+REPLACES = {
+    "flash_attention": "bloombee_tpu/ops/pallas/flash_attention.py:124",
+    "paged_decode_attention": "bloombee_tpu/ops/pallas/paged_attention.py:545",
+    "paged_chunk_attention": "bloombee_tpu/ops/pallas/paged_attention.py:445",
+}
+SOURCE_OF = {
+    "flash_attention": "flash_attention",
+    "paged_decode_attention": "paged_attention",
+    "paged_chunk_attention": "paged_attention",
+}
+
+
+def say(*parts):
+    print(*parts, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, warmup=3, iters=20) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_OPS[str(dtype).removeprefix("torch.")] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+# ------------------------------------------------------------- phase 1
+def phase_build():
+    from bloombee_tpu_torch.ops.cuda import build
+
+    t0 = time.perf_counter()
+    logs = build.build(SOURCES)
+    say(f"[build] {list(SOURCES)} built in "
+        f"{time.perf_counter() - t0:.1f} s (cached: "
+        f"{[s for s in SOURCES if s not in logs]})")
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                say(f"[build] {name}: {line.strip()}")
+
+
+# ------------------------------------------------------------- phase 2
+def _unit(gen, shape, dtype):
+    import torch
+
+    return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+
+def _tree(t, gen):
+    """[t, t] ancestor-or-self mask of a random tree (node i's parent is
+    drawn among nodes < i)."""
+    import torch
+
+    parents = [-1] + [
+        int(torch.randint(0, i, (1,), generator=gen, device="cuda"))
+        for i in range(1, t)
+    ]
+    tm = torch.zeros((t, t), dtype=torch.bool)
+    for n in range(t):
+        node = n
+        while node >= 0:
+            tm[n, node] = True
+            node = parents[node]
+    return tm
+
+
+def _arena(gen, dtype, pages):
+    return (
+        _unit(gen, (pages * PS, HKV, HD), dtype),
+        _unit(gen, (pages * PS, HKV, HD), dtype),
+    )
+
+
+def _page_table(gen, b, n_pages, phys):
+    import torch
+
+    perm = torch.randperm(phys, generator=gen, device="cuda")[: b * n_pages]
+    return perm.view(b, n_pages).to(torch.int32).contiguous()
+
+
+def phase_kernels() -> list[dict]:
+    import torch
+
+    from bloombee_tpu_torch.ops.cuda import flash_attention as fa
+    from bloombee_tpu_torch.ops.cuda import paged_attention as pa
+
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+    tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+    errs: dict[str, dict] = {}
+
+    def check(name, dtype, case, got, want):
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        err = diff.max().item()
+        ok = err <= tol[dtype] and torch.isfinite(got.float()).all().item()
+        rule = f"max {tol[dtype]:.0e}"
+        if dtype == torch.bfloat16:
+            # outputs over ~1000 keys are ~0.05, far below the absolute
+            # limit; one bf16 rounding step is <= 2^-7 |x|, so hold every
+            # element to 1e-2 of its plain value (+1e-3 for values near 0)
+            ok = ok and bool((diff <= 1e-2 * want.float().abs() + 1e-3).all())
+            rule += ", each <= 1e-2|plain|+1e-3"
+        say(f"[kernels] {name} {str(dtype)[6:]} {case}: max_abs_err="
+            f"{err:.3e} ({rule}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name} {case} {dtype}: err {err}")
+        slot = errs.setdefault(name, {})
+        slot[str(dtype)] = max(slot.get(str(dtype), 0.0), err)
+
+    i32 = dict(dtype=torch.int32, device="cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        # flash: the serving prefill's second chunk (512-token bucket over a
+        # 1024-token context) plus a full-attention mixed starts/lens case
+        q = _unit(gen, (4, 512, H, HD), dtype)
+        k = _unit(gen, (4, 1024, HKV, HD), dtype)
+        v = _unit(gen, (4, 1024, HKV, HD), dtype)
+        starts = torch.tensor([512, 512, 0, 300], **i32)
+        lens = torch.tensor([1000, 1024, 512, 700], **i32)
+        for causal in (True, False):
+            args = (q, k, v, causal, None, starts, lens)
+            check("flash_attention", dtype, f"causal={causal}",
+                  fa.flash_attention(*args),
+                  fa.flash_attention_reference(*args))
+
+        phys = 1024
+        ks, vs = _arena(gen, dtype, phys)
+        pt = _page_table(gen, 4, 64, phys)
+        lens = torch.tensor([1000, 777, 0, 1024], **i32)
+        qd = _unit(gen, (4, H, HD), dtype)
+        for window in (0, 100):
+            args = (qd, ks, vs, pt, lens, PS, None, window)
+            check("paged_decode_attention", dtype,
+                  f"window={window} lens=0 row",
+                  pa.paged_decode_attention(*args),
+                  pa.paged_decode_attention_reference(*args))
+
+        qc = _unit(gen, (4, 32, H, HD), dtype)
+        for window in (0, 40):
+            args = (qc, ks, vs, pt, lens.clamp_min(24), PS, None, None,
+                    window, 24)
+            check("paged_chunk_attention", dtype,
+                  f"causal t_real=24/32 window={window}",
+                  pa.paged_chunk_attention(*args),
+                  pa.paged_chunk_attention_reference(*args))
+        tree = torch.stack([_tree(8, gen) for _ in range(4)]).cuda()
+        qt = _unit(gen, (4, 8, H, HD), dtype)
+        args = (qt, ks, vs, pt, lens.clamp_min(8), PS, tree, None, 0, 8)
+        check("paged_chunk_attention", dtype, "tree T=8",
+              pa.paged_chunk_attention(*args),
+              pa.paged_chunk_attention_reference(*args))
+
+        # the other compiled geometries: hd 64, and GQA groups 1, 2 and 8
+        # (small shapes, ragged lengths, S not a multiple of the key tile)
+        for hd, h, hkv in ((64, 8, 8), (64, 16, 2), (128, 4, 2)):
+            geo = f"hd={hd} H={h} Hkv={hkv}"
+            q = _unit(gen, (2, 100, h, hd), dtype)
+            k = _unit(gen, (2, 150, hkv, hd), dtype)
+            v = _unit(gen, (2, 150, hkv, hd), dtype)
+            st = torch.tensor([50, 0], **i32)
+            ln = torch.tensor([150, 77], **i32)
+            args = (q, k, v, True, None, st, ln)
+            check("flash_attention", dtype, geo, fa.flash_attention(*args),
+                  fa.flash_attention_reference(*args))
+            ks = _unit(gen, (64 * PS, hkv, hd), dtype)
+            vs = _unit(gen, (64 * PS, hkv, hd), dtype)
+            pt = _page_table(gen, 2, 8, 64)
+            ln = torch.tensor([100, 37], **i32)
+            args = (_unit(gen, (2, h, hd), dtype), ks, vs, pt, ln, PS, None,
+                    0)
+            check("paged_decode_attention", dtype, geo,
+                  pa.paged_decode_attention(*args),
+                  pa.paged_decode_attention_reference(*args))
+            args = (_unit(gen, (2, 8, h, hd), dtype), ks, vs, pt, ln, PS,
+                    None, None, 0, 5)
+            check("paged_chunk_attention", dtype, geo,
+                  pa.paged_chunk_attention(*args),
+                  pa.paged_chunk_attention_reference(*args))
+
+    # times at the serving run's bf16 shapes (phase 4): 4 sessions
+    dt = torch.bfloat16
+    rows = []
+
+    q = _unit(gen, (4, 512, H, HD), dt)
+    k = _unit(gen, (4, 1024, HKV, HD), dt)
+    v = _unit(gen, (4, 1024, HKV, HD), dt)
+    starts = torch.full((4,), 512, **i32)
+    lens = torch.full((4,), 1000, **i32)
+    scale = HD**-0.5
+    ms = cuda_ms(lambda: fa.flash_attention(q, k, v, True, scale, starts, lens))
+    plain = cuda_ms(
+        lambda: fa.flash_attention_reference(q, k, v, True, scale, starts, lens),
+        iters=5,
+    )
+    from bloombee_tpu_torch.ops.attention import repeat_kv
+
+    kr, vr = repeat_kv(k, H // HKV), repeat_kv(v, H // HKV)
+    pos_q = starts[:, None] + torch.arange(512, device="cuda")
+    kpos = torch.arange(1024, device="cuda")
+    mask = (kpos[None, None] <= pos_q[:, :, None]) & (
+        kpos[None, None] < lens[:, None, None]
+    )
+    qt_, kt_, vt_ = (x.transpose(1, 2) for x in (q, kr, vr))
+    m4 = mask[:, None]
+    library = cuda_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt_, kt_, vt_, attn_mask=m4, scale=scale
+        )
+    )
+    vis = mask.sum().item() * H  # visible (query, key) pairs, all heads
+    b_ms, by = bound(
+        nbytes(q, k[:, :1000], v[:, :1000], q, starts, lens), 4 * vis * HD, dt
+    )
+    rows.append(("flash_attention", ms, plain, b_ms, by, library))
+
+    phys = 1024
+    ks, vs = _arena(gen, dt, phys)
+    pt = _page_table(gen, 4, 64, phys)
+    lens = torch.full((4,), 1001, **i32)
+    qd = _unit(gen, (4, H, HD), dt)
+    args = (qd, ks, vs, pt, lens, PS, scale, 0)
+    ms = cuda_ms(lambda: pa.paged_decode_attention(*args))
+    plain = cuda_ms(lambda: pa.paged_decode_attention_reference(*args))
+    kv_rows = 4 * 1001
+    b_ms, by = bound(
+        2 * kv_rows * HKV * HD * 2 + nbytes(qd, qd, pt, lens),
+        4 * kv_rows * H * HD, dt,
+    )
+    rows.append(("paged_decode_attention", ms, plain, b_ms, by, None))
+
+    qc = _unit(gen, (4, 32, H, HD), dt)
+    lens = torch.full((4,), 1032, **i32)
+    args = (qc, ks, vs, pt.repeat(1, 2)[:, :65].contiguous(), lens, PS, None,
+            scale, 0, 24)
+    ms = cuda_ms(lambda: pa.paged_chunk_attention(*args))
+    plain = cuda_ms(lambda: pa.paged_chunk_attention_reference(*args))
+    vis = 4 * sum(1032 - 24 + i + 1 for i in range(24))  # per head
+    b_ms, by = bound(
+        2 * 4 * 1032 * HKV * HD * 2 + nbytes(qc, qc, lens) + 4 * 65 * 4,
+        4 * vis * H * HD, dt,
+    )
+    rows.append(("paged_chunk_attention", ms, plain, b_ms, by, None))
+
+    out = []
+    for name, ms, plain, b_ms, by, library in rows:
+        say(f"[kernels] {name} bf16 main-path shape: {ms:.4f} ms (plain "
+            f"{plain:.4f} ms, library "
+            f"{'n/a' if library is None else f'{library:.4f} ms'}, "
+            f"bound {b_ms:.4f} ms by {by})")
+        out.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"bloombee_tpu_torch/ops/cuda/csrc/{SOURCE_OF[name]}.cu",
+            "replaces": REPLACES[name],
+            "launches": 0,
+            "max_abs_err": errs[name][str(torch.bfloat16)],
+            "f32_max_abs_err": errs[name][str(torch.float32)],
+            "ms": ms,
+            "plain_ms": plain,
+            "bound_ms": b_ms,
+            "bound_by": by,
+            "library_ms": library,
+        })
+    return out
+
+
+# ------------------------------------------------------------- model
+def llama3_8b(layers: int):
+    from bloombee_tpu_torch.models.spec import ModelSpec
+
+    return ModelSpec(
+        family="llama", hidden_size=4096, intermediate_size=14336,
+        num_attention_heads=H, num_key_value_heads=HKV, head_dim=HD,
+        num_hidden_layers=layers, vocab_size=128256, rms_norm_eps=1e-5,
+        rope_theta=500000.0,
+    )
+
+
+def random_model(spec, dtype, seed):
+    import torch
+
+    from bloombee_tpu_torch.models.llama.block import init_block_params
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    layers = [
+        init_block_params(gen, spec, dtype=dtype, device="cuda")
+        for _ in range(spec.num_hidden_layers)
+    ]
+    d, vocab = spec.hidden_size, spec.vocab_size
+    client = {
+        "embed": torch.randn(
+            (vocab, d), generator=gen, device="cuda"
+        ).to(dtype),
+        "norm": torch.ones((d,), device="cuda", dtype=dtype),
+        "lm_head": (
+            torch.randn((d, vocab), generator=gen, device="cuda") * d**-0.5
+        ).to(dtype),
+    }
+    return layers, client, gen
+
+
+# ------------------------------------------------------------- phase 3
+def phase_f32_path():
+    import torch
+
+    from bloombee_tpu_torch.kv.cache_manager import CacheManager
+    from bloombee_tpu_torch.models.head import embed_impl, norm_head_impl
+    from bloombee_tpu_torch.models.llama.block import (
+        block_forward,
+        dense_attend,
+    )
+    from bloombee_tpu_torch.ops.cuda import build
+    from bloombee_tpu_torch.ops.rotary import rotary_cos_sin
+    from bloombee_tpu_torch.runtime.executor import SpanExecutor
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    spec = llama3_8b(4)
+    layers, client, gen = random_model(spec, torch.float32, seed=7)
+    eps = spec.rms_norm_eps
+
+    def head(h):
+        return norm_head_impl(client, h, eps).argmax(-1)
+
+    async def run():
+        manager = CacheManager(
+            4, 256, PS, HKV, HD, dtype=torch.float32, device="cuda"
+        )
+        ex = SpanExecutor(
+            layers, spec, manager, max_chunk_tokens=512,
+            compute_dtype=torch.float32, device="cuda",
+        )
+        ids = torch.randint(
+            0, spec.vocab_size, (2, 1000), generator=gen, device="cuda"
+        )
+        build.reset_launch_counts()
+        async with manager.allocate(2, 1100) as handle:
+            outs = [ex.prefill(handle, embed_impl(client, ids), fetch=False)]
+            fed = [ids]
+            nxt = head(outs[-1][:, -1])
+            greedy = [nxt]
+            for _ in range(8):
+                fed.append(nxt[:, None])
+                outs.append(
+                    ex.decode(handle, embed_impl(client, nxt[:, None]),
+                              fetch=False)
+                )
+                nxt = head(outs[-1][:, -1])
+                greedy.append(nxt)
+            follow = torch.randint(
+                0, spec.vocab_size, (2, 24), generator=gen, device="cuda"
+            )
+            fed.append(follow)
+            outs.append(
+                ex.decode(handle, embed_impl(client, follow), fetch=False)
+            )
+        return torch.cat(outs, 1), torch.cat(fed, 1), torch.stack(greedy, 1)
+
+    out, fed, greedy = asyncio.run(run())
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    with torch.no_grad():
+        h = embed_impl(client, fed)
+        pos = torch.arange(fed.shape[1], device="cuda")[None].expand(2, -1)
+        cos, sin = rotary_cos_sin(pos, HD, spec.rope_theta)
+        for p in layers:
+            h, _ = block_forward(p, spec, h, cos, sin, dense_attend())
+        ref_greedy = head(h[:, 999:1008])
+    err = (out - h).abs().max().item()
+    lim = 1e-3 * h.abs().max().item()
+    tokens_ok = torch.equal(ref_greedy, greedy) and torch.equal(
+        head(out[:, -1]), head(h[:, -1])
+    )
+    say(f"[f32-path] 4 layers, hidden {spec.hidden_size}: prefill 1000 x2 + "
+        f"8 decodes + 24-token follow-up vs dense reference: max_abs_err="
+        f"{err:.3e} (limit {lim:.3e}), greedy tokens identical: {tokens_ok}, "
+        f"launches {launches}")
+    if not (err <= lim and tokens_ok and torch.isfinite(out).all().item()):
+        raise AssertionError("f32 whole-path check failed")
+    if set(launches) != set(REPLACES):
+        raise AssertionError(f"f32 path missed kernels: {launches}")
+    del layers, client
+
+
+# ------------------------------------------------------------- phase 4
+def profiled(label: str, fn, top: int = 12):
+    """Time one untraced call of fn(), then trace it with torch.profiler
+    (after one traced warmup call that absorbs the tracer's start-up), and
+    print each kernel's device time and the kernels' share of the untraced
+    wall time (tracing itself slows the host, so the traced wall time is
+    not the baseline)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    for _ in range(2):  # the first traced call warms the tracer up
+        with profile(activities=activities) as prof:
+            fn()
+            torch.cuda.synchronize()
+    rows = sorted(
+        (
+            (evt.self_device_time_total / 1e3, evt.count, evt.key)
+            for evt in prof.key_averages()
+            if evt.device_type == DeviceType.CUDA
+            and evt.self_device_time_total > 0
+        ),
+        reverse=True,
+    )
+    busy = sum(r[0] for r in rows)
+    say(f"[profile] {label}: untraced wall {wall_ms:.2f} ms, traced kernels "
+        f"{busy:.2f} ms -> device busy {100 * busy / wall_ms:.1f}%, idle "
+        f"{100 - 100 * busy / wall_ms:.1f}%")
+    for ms, count, key in rows[:top]:
+        say(f"[profile]   {ms:9.3f} ms  x{count:<5d} {key[:90]}")
+
+
+def phase_serving(profile: bool = False) -> dict:
+    import torch
+
+    from bloombee_tpu_torch.kv.cache_manager import CacheManager
+    from bloombee_tpu_torch.models.head import embed_impl, norm_head_impl
+    from bloombee_tpu_torch.ops.cuda import build
+    from bloombee_tpu_torch.runtime.executor import SpanExecutor
+
+    spec = llama3_8b(32)
+    layers, client, gen = random_model(spec, torch.bfloat16, seed=11)
+    torch.cuda.synchronize()
+    say(f"[serving] Llama-3-8B bf16, 32 layers, weights "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    eps = spec.rms_norm_eps
+
+    def head(h):
+        return norm_head_impl(client, h, eps).argmax(-1)
+
+    async def run():
+        manager = CacheManager(
+            32, 1024, PS, HKV, HD, dtype=torch.bfloat16, device="cuda"
+        )
+        ex = SpanExecutor(
+            layers, spec, manager, max_chunk_tokens=512,
+            compute_dtype=torch.bfloat16, device="cuda",
+        )
+        prompts = torch.randint(
+            0, spec.vocab_size, (4, 1000), generator=gen, device="cuda"
+        )
+        stats = {}
+        async with contextlib.AsyncExitStack() as stack:
+            handles = [
+                await stack.enter_async_context(manager.allocate(1, 1600))
+                for _ in range(4)
+            ]
+            torch.cuda.synchronize()
+            build.reset_launch_counts()
+            t0 = time.perf_counter()
+            nxt = []
+            for i, hd in enumerate(handles):
+                out = ex.prefill(
+                    hd, embed_impl(client, prompts[i : i + 1]), fetch=False
+                )
+                nxt.append(head(out[:, -1]))
+            torch.cuda.synchronize()
+            stats["prefill_s"] = time.perf_counter() - t0
+            nxt = torch.cat(nxt)
+            step_s = []
+            outs = []
+
+            def decode_step():
+                nonlocal nxt
+                hid = embed_impl(client, nxt[:, None])
+                out, combined = ex.decode_group(
+                    handles, [hid[i : i + 1] for i in range(4)]
+                )
+                manager.commit(combined)
+                nxt = head(out[:, -1])
+                outs.append(out)
+
+            for _ in range(32):
+                t1 = time.perf_counter()
+                decode_step()
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t1)
+            follow = torch.randint(
+                0, spec.vocab_size, (1, 24), generator=gen, device="cuda"
+            )
+            outs.append(
+                ex.decode(handles[0], embed_impl(client, follow), fetch=False)
+            )
+            tree = torch.zeros((1, 8, 8), dtype=torch.bool)
+            parents = [-1, 0, 0, 1, 1, 2, 3, 5]
+            depths = torch.zeros((1, 8), dtype=torch.int32)
+            for n in range(8):
+                node = n
+                while node >= 0:
+                    tree[0, n, node] = True
+                    depths[0, n] += node != n
+                    node = parents[node]
+            draft = torch.randint(
+                0, spec.vocab_size, (1, 8), generator=gen, device="cuda"
+            )
+            outs.append(
+                ex.decode(
+                    handles[1], embed_impl(client, draft), commit=False,
+                    tree_mask=tree.numpy(), depths=depths.numpy(),
+                    fetch=False,
+                )
+            )
+            manager.rollback(handles[1])
+            torch.cuda.synchronize()
+            stats["launches"] = dict(build.LAUNCHES)  # the main path's own
+            stats["finite"] = all(
+                torch.isfinite(o.float()).all().item() for o in outs
+            )
+            if profile:
+                profiled("4 decode_group steps (4 sessions)",
+                         lambda: [decode_step() for _ in range(4)])
+                extra = torch.randint(
+                    0, spec.vocab_size, (1, 512), generator=gen,
+                    device="cuda",
+                )
+                ctx = int(manager.context_lens(handles[3])[0])
+
+                def prefill_chunk():
+                    outs.append(ex.prefill(
+                        handles[3], embed_impl(client, extra), commit=False,
+                        fetch=False,
+                    ))
+                    manager.rollback(handles[3])
+
+                profiled(
+                    f"one 512-token prefill chunk (session 3, after its "
+                    f"{ctx} tokens)", prefill_chunk,
+                )
+            steady = sorted(step_s[2:])
+            stats["decode_step_s"] = steady[len(steady) // 2]
+        return stats
+
+    stats = asyncio.run(run())
+    tok_s = 4 / stats["decode_step_s"]
+    say(f"[serving] prefill 4 x 1000 tokens: {stats['prefill_s']:.3f} s "
+        f"({4000 / stats['prefill_s']:.0f} tok/s); decode_group of 4, median "
+        f"step {stats['decode_step_s'] * 1e3:.2f} ms ({tok_s:.1f} tok/s, "
+        f"{tok_s / 4:.1f} tok/s/session); finite={stats['finite']}; "
+        f"launches {stats['launches']}")
+    if not stats["finite"]:
+        raise AssertionError("serving run produced non-finite outputs")
+    missing = [k for k in REPLACES if stats["launches"].get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"serving run never launched {missing}")
+    return stats["launches"]
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument(
+        "--quick", action="store_true",
+        help="build and check the kernels only (phases 1-2); prints no "
+        "result line",
+    )
+    parser.add_argument(
+        "--profile", action="store_true",
+        help="after the serving run's main path (and its launch counts), "
+        "trace 4 more decode steps and one prefill chunk with "
+        "torch.profiler and print where the time goes",
+    )
+    args = parser.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    if not (REPO / "bloombee_tpu_torch" / "ops" / "cuda" / "csrc").is_dir():
+        print("chip_smoke: bloombee_tpu_torch not found beside this script",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(REPO))
+    say(f"python {sys.version.split()[0]} torch {torch.__version__} "
+        f"cuda {torch.version.cuda}")
+    card = card_line()
+    say(card)
+    try:
+        phase_build()
+        kernels = phase_kernels()
+        if args.quick:
+            say(json.dumps({"kernels": kernels}))
+            return 3
+        phase_f32_path()
+        torch.cuda.empty_cache()
+        launches = phase_serving(args.profile)
+    except Exception:
+        traceback.print_exc()
+        return 1
+    for row in kernels:
+        row["launches"] = launches.get(row["name"], 0)
+    say(json.dumps({"kernels": kernels}))
+    say(card_line())
+    say(json.dumps({
+        "ok": True,
+        "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        },
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
