@@ -11,12 +11,22 @@ Unlike JAX's functional scatter, `arena_write` updates the slab in place
 out-of-bounds slots (`mode="drop"`), and the executor points padding rows at
 slot == capacity relying on that; `index_copy_` would not drop them, so the
 write plan keeps only in-bounds rows before scattering.
+
+`quant="int4"` stores the slabs group-quantized (`kv.quant.QuantSlab`):
+writes quantize the kept rows, gathers dequantize to f32.
 """
 
 from __future__ import annotations
 
 import torch
 
+from bloombee_tpu_torch.kv.quant import (
+    QuantSlab,
+    dequantize,
+    make_quant_slab,
+    quantize,
+    take,
+)
 from bloombee_tpu_torch.utils.device import resolve_device
 
 
@@ -28,9 +38,17 @@ def make_arena(
     head_dim: int,
     dtype=torch.bfloat16,
     device="cuda",
+    quant: str | None = None,
 ) -> dict:
     device = resolve_device(device)
     shape = (num_layers, num_pages * page_size, n_kv_heads, head_dim)
+    if quant == "int4":
+        return {
+            "k": make_quant_slab(shape, device),
+            "v": make_quant_slab(shape, device),
+        }
+    if quant not in (None, "none"):
+        raise ValueError(f"unknown KV quant mode {quant!r}")
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
@@ -49,6 +67,12 @@ def write_plan(
     return rows.to(device), slots[rows].to(device)
 
 
+def slab_layer(slab, layer: int):
+    """Layer `layer` of an arena slab (dense or QuantSlab) as views that
+    write through to the arena."""
+    return take(slab, layer) if isinstance(slab, QuantSlab) else slab[layer]
+
+
 def arena_write(
     k_layer: torch.Tensor,  # [S_tot, n_kv, hd] one layer's slab (in place)
     v_layer: torch.Tensor,
@@ -61,8 +85,13 @@ def arena_write(
     `plan` is a precomputed `write_plan` (one per step, shared by layers).
     Returns the (updated) slabs."""
     if plan is None:
-        plan = write_plan(slots, k_layer.shape[0], k_layer.device)
+        plan = write_plan(slots, k_layer.shape[0], k_new.device)
     rows, dst = plan
+    if isinstance(k_layer, QuantSlab):
+        for slab, new in ((k_layer, k_new), (v_layer, v_new)):
+            for leaf, part in zip(slab, quantize(new.index_select(0, rows))):
+                leaf.index_copy_(0, dst, part)
+        return k_layer, v_layer
     k_layer.index_copy_(0, dst, k_new.index_select(0, rows).to(k_layer.dtype))
     v_layer.index_copy_(0, dst, v_new.index_select(0, rows).to(v_layer.dtype))
     return k_layer, v_layer
@@ -73,11 +102,14 @@ def gather_pages(
     page_table: torch.Tensor,  # [B, max_pages] int
     page_size: int,
 ) -> torch.Tensor:
-    """Each sequence's pages as [B, max_pages*page_size, n_kv, hd]. Padding
-    pages gather garbage rows; callers mask by context length."""
+    """Each sequence's pages as [B, max_pages*page_size, n_kv, hd]
+    (dequantized to f32 from a QuantSlab). Padding pages gather garbage
+    rows; callers mask by context length."""
     b, max_pages = page_table.shape
     slots = (
         page_table.long()[:, :, None] * page_size
         + torch.arange(page_size, device=page_table.device)[None, None, :]
     ).reshape(b, max_pages * page_size)
+    if isinstance(layer_slab, QuantSlab):
+        return dequantize(take(layer_slab, slots), torch.float32)
     return layer_slab[slots]

@@ -3,9 +3,11 @@ core of bloombee_tpu/kv/cache_manager.py).
 
 Kept: token-budget admission with timeout (`allocate`), handle -> per-
 sequence cache state freed on context exit, speculative write / commit /
-rollback / truncate over the PagedKVTable, and the combined handle of a
-batched decode step. Left for later slices: host/disk parking, the prefix
-pool, int4 arenas and heterogeneous arenas.
+rollback / truncate over the PagedKVTable, ragged per-sequence writes,
+the combined handle of a batched step, and the int4 arena
+(`quant="int4"`, an explicit argument: the port reads no BBTPU_KV_QUANT).
+Left for later slices: host/disk parking, the prefix pool and
+heterogeneous arenas.
 """
 
 from __future__ import annotations
@@ -63,12 +65,14 @@ class CacheManager:
         head_dim: int,
         dtype=torch.bfloat16,
         device="cuda",
+        quant: str | None = None,  # None | "int4"
     ):
         self.device = resolve_device(device)
+        self.quant = None if quant in (None, "none") else quant
         self.table = PagedKVTable(num_pages, page_size)
         self.arena = arena_ops.make_arena(
             num_layers, num_pages, page_size, n_kv_heads, head_dim, dtype,
-            self.device,
+            self.device, quant=self.quant,
         )
         self.num_layers = num_layers
         self.page_size = page_size
@@ -139,30 +143,44 @@ class CacheManager:
                 self._reserved_tokens -= need
                 cond.notify_all()
 
-    @_locked
     def write_slots(
         self, handle: CacheHandle, num_tokens: int, commit: bool = True
     ) -> np.ndarray:
         """[B * num_tokens] flat slots for this step's new tokens (batch-then-
         token order, matching hidden.reshape(B*T, ...)). Atomic across the
         batch: page availability is checked before any sequence is touched."""
+        return self.write_slots_ragged(
+            handle, [num_tokens] * handle.batch_size, commit=commit
+        )
+
+    @_locked
+    def write_slots_ragged(
+        self, handle: CacheHandle, counts: list[int], commit: bool = False
+    ) -> np.ndarray:
+        """write_slots with a per-sequence token count: [sum(counts)] flat
+        slots, sequence-major in handle.seq_ids order (the ragged packing,
+        where a decode member writes 1 token and a prefill chunk its whole
+        chunk). Atomic like write_slots: page availability is checked for
+        all members before any is touched."""
+        if len(counts) != len(handle.seq_ids):
+            raise ValueError(
+                f"{len(counts)} counts for {len(handle.seq_ids)} sequences"
+            )
         table = self.table
         need = 0
-        for sid in handle.seq_ids:
+        for sid, n in zip(handle.seq_ids, counts):
             st = table.seq(sid)
             need += max(
-                0,
-                -(-(st.l_seq + num_tokens) // self.page_size) - st.num_pages,
+                0, -(-(st.l_seq + int(n)) // self.page_size) - st.num_pages
             )
         if need > table.free_pages:
             raise OutOfPages(
-                f"batch write needs {need} pages, only "
-                f"{table.free_pages} free"
+                f"write needs {need} pages, only {table.free_pages} free"
             )
         return np.concatenate(
             [
-                table.assign_write_slots(sid, num_tokens, commit=commit)
-                for sid in handle.seq_ids
+                table.assign_write_slots(sid, int(n), commit=commit)
+                for sid, n in zip(handle.seq_ids, counts)
             ]
         )
 
@@ -191,6 +209,13 @@ class CacheManager:
     def rollback(self, handle: CacheHandle):
         for sid in handle.seq_ids:
             self.table.rollback(sid)
+
+    @_locked
+    def epoch_valid(self, handle: CacheHandle) -> bool:
+        """True while every sequence of `handle` still holds its KV (the
+        JAX package also tracks arena rebuilds, which the port does not
+        have): a failed chunked prefill rolls back only then."""
+        return all(self.table.has_seq(sid) for sid in handle.seq_ids)
 
     @_locked
     def combine_handles(self, handles: list[CacheHandle]) -> CacheHandle:

@@ -1,11 +1,12 @@
 """Build the port's CUDA kernels and count their launches.
 
 Each `csrc/<name>.cu` compiles with `nvcc` for `sm_90a` into its own shared
-library with a plain C interface, loaded with ctypes. No PyTorch headers and
-no ninja: a source builds in seconds. Libraries land in `_build/` (listed in
-.gitignore), keyed by a hash of the source and the flags, so a changed
-source rebuilds and an unchanged one loads at once. Several sources build in
-parallel, one `nvcc` each.
+library with a plain C interface, loaded with ctypes; `csrc/*.cuh` holds
+device code that several sources include. No PyTorch headers and no ninja:
+a source builds in seconds. Libraries land in `_build/` (listed in
+.gitignore), keyed by a hash of the source, the headers and the flags, so
+a changed source rebuilds and an unchanged one loads at once. Several
+sources build in parallel, one `nvcc` each.
 
 A build failure raises with the compiler's output; nothing falls back.
 
@@ -60,7 +61,11 @@ def nvcc() -> str:
 
 def _output(name: str) -> pathlib.Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    # every source may include the shared headers: they key each library
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(
+        src + headers + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 

@@ -1,21 +1,30 @@
-"""Paged decode and paged chunk attention: the Hopper kernels
-(`csrc/paged_attention.cu`) and their plain PyTorch versions.
+"""The paged attention kernels for Hopper (`csrc/paged_attention.cu`,
+`csrc/paged_ragged.cu`, sharing `csrc/paged_common.cuh`) and their plain
+PyTorch versions.
 
 Replaces, in bloombee_tpu/ops/pallas/paged_attention.py:
 
 - `paged_decode_attention`: T=1 attention straight off the paged arena. The
   decode query sits at position lens[b]-1 and sees keys at positions
   < lens[b] (and >= lens[b]-window when window > 0).
+- `paged_decode_attention_int4`: the same over an int4-quantized arena
+  (`kv.quant.QuantSlab`), dequantized as it is read.
 - `paged_chunk_attention`: T>1 steps (short follow-up chunks, tree verify).
   The step's tokens sit at [lens[b]-t_real, lens[b]). Causal mode takes an
   optional per-query window and treats query rows >= t_real as padding;
   tree mode keeps the committed prefix fully visible and lets a [T, T] tree
   mask govern the in-step keys.
+- `paged_ragged_attention`: R query rows spread unevenly over B sequences
+  in one launch. Row i belongs to sequence q_seq[i] at position q_pos[i]
+  (q_seq >= B: a padding row). Causal mode: keys at positions < lens[b]
+  and <= q_pos, with an optional window. Tree mode: keys below
+  lens[b] - nt[b] (the committed prefix) are visible, and the m-th
+  in-step key iff tree_rows[i, m].
 
-Both read keys only through the NP pages of the page table, keep the softmax
-and the P.V sum in f32 (as the Pallas kernels do), and output zeros for a
-row with no visible key. Each wrapper runs its plain version for tensors on
-the CPU and its kernel for CUDA tensors; it never falls back.
+All read keys only through the page table, keep the softmax and the P.V
+sum in f32 (as the Pallas kernels do), and output zeros for a row with no
+visible key. Each wrapper runs its plain version for tensors on the CPU and
+its kernel for CUDA tensors; it never falls back.
 """
 
 from __future__ import annotations
@@ -24,25 +33,33 @@ import ctypes
 
 import torch
 
+from bloombee_tpu_torch.kv.quant import QuantSlab, dequantize, take
 from bloombee_tpu_torch.ops.attention import NEG_INF, repeat_kv
 from bloombee_tpu_torch.ops.cuda import build
 
 SOURCE = "paged_attention"
+RAGGED_SOURCE = "paged_ragged"
 DECODE = "paged_decode_attention"
+INT4 = "paged_decode_attention_int4"
 CHUNK = "paged_chunk_attention"
+RAGGED = "paged_ragged_attention"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
 _GROUPS = (1, 2, 4, 8)
-_lib = None
+_libs: dict = {}
 
 
 def _gather(slab, page_table, page_size):
+    """[B, NP * page_size, Hkv, hd] f32: each row's pages of a dense slab
+    or, dequantized, of a QuantSlab."""
     b = page_table.shape[0]
     slots = (
         page_table.long()[:, :, None] * page_size
-        + torch.arange(page_size, device=slab.device)
+        + torch.arange(page_size, device=page_table.device)
     ).reshape(b, -1)
-    return slab[slots].float()  # [B, NP * page_size, Hkv, hd]
+    if isinstance(slab, QuantSlab):
+        return dequantize(take(slab, slots), torch.float32)
+    return slab[slots].float()
 
 
 def _softmax_pv(logits, mask, v):
@@ -126,57 +143,175 @@ def paged_decode_attention_reference(
     )[:, 0]
 
 
-def _library():
-    global _lib
-    if _lib is None:
-        lib = build.library(SOURCE)
-        vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+def paged_decode_attention_int4_reference(
+    q: torch.Tensor,  # [B, H, hd]
+    k_slab: QuantSlab,  # codes [S_tot, Hkv, hd/2] u8, scale/zero f16
+    v_slab: QuantSlab,
+    page_table: torch.Tensor,  # [B, NP] i32
+    lens: torch.Tensor,  # [B] i32, including this token
+    page_size: int,
+    scale: float | None = None,
+    window: int = 0,
+) -> torch.Tensor:
+    """Plain PyTorch version of the int4 decode kernel: the decode plain
+    version over the dequantized (f32) pages."""
+    return paged_decode_attention_reference(
+        q, k_slab, v_slab, page_table, lens, page_size, scale, window
+    )
+
+
+def paged_ragged_attention_reference(
+    q: torch.Tensor,  # [R, H, hd]
+    k_slab: torch.Tensor,  # [S_tot, Hkv, hd]
+    v_slab: torch.Tensor,
+    page_table: torch.Tensor,  # [B, NP] i32
+    lens: torch.Tensor,  # [B] i32, including each sequence's new tokens
+    q_seq: torch.Tensor,  # [R] i32 owning sequence (>= B: padding row)
+    q_pos: torch.Tensor,  # [R] i32 position of each row
+    page_size: int,
+    scale: float | None = None,
+    window: int = 0,
+    nt: torch.Tensor | None = None,  # [B] i32 in-step tokens (tree mode)
+    tree_rows: torch.Tensor | None = None,  # [R, t_max] (tree mode)
+) -> torch.Tensor:
+    """Plain PyTorch version of the ragged kernel: each row gathers its own
+    sequence's pages and applies the kernel's mask over [R, H, 1, S]
+    logits."""
+    r, h, hd = q.shape
+    b = page_table.shape[0]
+    hkv = k_slab.shape[1]
+    if scale is None:
+        scale = hd**-0.5
+    live = q_seq.long() < b
+    seq = torch.where(live, q_seq.long(), 0)
+    k = repeat_kv(_gather(k_slab, page_table[seq], page_size), h // hkv)
+    v = repeat_kv(_gather(v_slab, page_table[seq], page_size), h // hkv)
+    pos = torch.arange(k.shape[1], device=q.device)[None, :]  # [1, S]
+    length = lens.long()[seq][:, None]  # [R, 1]
+    mask = live[:, None] & (pos < length)
+    if tree_rows is None:
+        qp = q_pos.long()[:, None]
+        mask = mask & (pos <= qp)
+        if window > 0:
+            mask = mask & (pos > qp - window)
+    else:
+        t_max = tree_rows.shape[1]
+        m = pos - (length - nt.long()[seq][:, None])  # in-step slot index
+        in_step = (m >= 0) & (m < t_max)
+        vis = torch.gather(tree_rows.long(), 1, m.clamp(0, t_max - 1)) > 0
+        mask = mask & ((m < 0) | (in_step & vis))
+    logits = torch.einsum("rhd,rshd->rhs", q.float() * scale, k)[:, :, None]
+    out = _softmax_pv(logits, mask[:, None, None], v)  # [R, 1, H, hd]
+    return out[:, 0].to(q.dtype)
+
+
+def _library(source: str):
+    lib = _libs.get(source)
+    if lib is not None:
+        return lib
+    lib = build.library(source)
+    vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    if source == SOURCE:
         lib.bb_paged_decode_attention.argtypes = [
             vp, vp, vp, vp, vp, vp,  # q, k_slab, v_slab, page_table, lens, out
             i32, i32, i32, i32, i32, i32, i32,  # B, H, Hkv, hd, NP, ps, window
             f32, i32, vp,  # scale, dtype, stream
         ]
-        lib.bb_paged_decode_attention.restype = i32
         lib.bb_paged_chunk_attention.argtypes = [
             vp, vp, vp, vp, vp, vp, vp,  # q, k, v, page_table, lens, tree, out
             i32, i32, i32, i32, i32, i32, i32, i32, i32,  # B T H Hkv hd NP
             # ps window t_real
             f32, i32, vp,  # scale, dtype, stream
         ]
-        lib.bb_paged_chunk_attention.restype = i32
-        _lib = lib
-    return _lib
+        lib.bb_paged_decode_attention_int4.argtypes = [
+            vp, vp, vp, vp,  # q, k_slab codes, scale, zero
+            vp, vp, vp,  # v_slab codes, scale, zero
+            vp, vp, vp,  # page_table, lens, out
+            i32, i32, i32, i32, i32, i32, i32,  # B, H, Hkv, hd, NP, ps, window
+            f32, i32, vp,  # scale, dtype, stream
+        ]
+        fns = (lib.bb_paged_decode_attention, lib.bb_paged_chunk_attention,
+               lib.bb_paged_decode_attention_int4)
+    else:
+        lib.bb_paged_ragged_attention.argtypes = [
+            vp, vp, vp, vp, vp,  # q, k_slab, v_slab, page_table, lens
+            vp, vp, vp, vp, vp,  # q_seq, q_pos, nt, tree_rows, out
+            i32, i32, i32, i32, i32, i32, i32, i32, i32,  # R B H Hkv hd NP
+            # ps window t_max
+            f32, i32, vp,  # scale, dtype, stream
+        ]
+        fns = (lib.bb_paged_ragged_attention,)
+    for fn in fns:
+        fn.restype = i32
+    _libs[source] = lib
+    return lib
 
 
-def _check(kernel, q, k_slab, v_slab, page_table, lens, page_size):
-    b, h, hd = q.shape[0], q.shape[-2], q.shape[-1]
+def _check(kernel, q, k_slab, v_slab, page_table, lens, page_size, b=None):
+    """Validate a launch's arguments (`b`: the page table's rows, q's
+    leading dim unless given); raise on anything the kernel does not take."""
+    h, hd = q.shape[-2], q.shape[-1]
+    b = q.shape[0] if b is None else b
     if q.device.type != "cuda":
         raise ValueError(f"{kernel}: tensors must be on CUDA, not {q.device}")
     if q.dtype not in _DTYPES:
         raise ValueError(f"{kernel}: dtype {q.dtype} not in {list(_DTYPES)}")
     if hd not in _HEAD_DIMS:
         raise ValueError(f"{kernel}: head_dim {hd} not in {_HEAD_DIMS}")
-    if k_slab.dim() != 3 or k_slab.shape[2] != hd or k_slab.shape != v_slab.shape:
-        raise ValueError(f"{kernel}: slab {tuple(k_slab.shape)} vs hd {hd}")
-    hkv = k_slab.shape[1]
+    if isinstance(k_slab, QuantSlab):
+        s_tot, hkv = k_slab.codes.shape[:2]
+        want = {
+            "codes": ((s_tot, hkv, hd // 2), torch.uint8),
+            "scale": ((s_tot, hkv, hd // 32), torch.float16),
+            "zero": ((s_tot, hkv, hd // 32), torch.float16),
+        }
+        leaves = []
+        for side, slab in (("k", k_slab), ("v", v_slab)):
+            if not isinstance(slab, QuantSlab):
+                raise ValueError(f"{kernel}: {side}_slab must be a QuantSlab")
+            for name, x in slab._asdict().items():
+                if (tuple(x.shape), x.dtype) != want[name]:
+                    raise ValueError(
+                        f"{kernel}: {side}_slab.{name} {tuple(x.shape)} "
+                        f"{x.dtype}, want {want[name]}"
+                    )
+                leaves.append((f"{side}_slab.{name}", x))
+    else:
+        if (k_slab.dim() != 3 or k_slab.shape[2] != hd
+                or k_slab.shape != v_slab.shape):
+            raise ValueError(
+                f"{kernel}: slab {tuple(k_slab.shape)} vs hd {hd}"
+            )
+        s_tot, hkv = k_slab.shape[:2]
+        leaves = [("k_slab", k_slab), ("v_slab", v_slab)]
+        for name, x in leaves:
+            if x.dtype != q.dtype:
+                raise ValueError(f"{kernel}: {name} must match q's dtype")
     if h % hkv or h // hkv not in _GROUPS:
         raise ValueError(f"{kernel}: H/Hkv = {h}/{hkv} not in {_GROUPS}")
-    if k_slab.shape[0] % page_size:
+    if s_tot % page_size:
         raise ValueError(f"{kernel}: arena slots % page_size {page_size}")
-    for name, x in (("k_slab", k_slab), ("v_slab", v_slab)):
-        if x.dtype != q.dtype or x.device != q.device:
-            raise ValueError(f"{kernel}: {name} must match q's dtype/device")
     if page_table.dim() != 2 or page_table.shape[0] != b:
         raise ValueError(f"{kernel}: page_table must be [B, NP]")
     for name, x in (("page_table", page_table), ("lens", lens)):
-        if x.dtype != torch.int32 or x.device != q.device:
-            raise ValueError(f"{kernel}: {name} must be int32 on q's device")
+        if x.dtype != torch.int32:
+            raise ValueError(f"{kernel}: {name} must be int32")
     if lens.shape != (b,):
         raise ValueError(f"{kernel}: lens must be [B]")
-    for name, x in (("q", q), ("k_slab", k_slab), ("v_slab", v_slab),
-                    ("page_table", page_table), ("lens", lens)):
+    for name, x in (("q", q), *leaves, ("page_table", page_table),
+                    ("lens", lens)):
+        if x.device != q.device:
+            raise ValueError(f"{kernel}: {name} must be on q's device")
         if not x.is_contiguous():
             raise ValueError(f"{kernel}: {name} must be contiguous")
+
+
+def _scale(scale, hd) -> float:
+    return float(hd**-0.5 if scale is None else scale)
+
+
+def _stream(q) -> int:
+    return torch.cuda.current_stream(q.device).cuda_stream
 
 
 def paged_decode_attention(
@@ -194,15 +329,14 @@ def paged_decode_attention(
             q, k_slab, v_slab, page_table, lens, page_size, scale, window
         )
     _check(DECODE, q, k_slab, v_slab, page_table, lens, page_size)
-    lib = _library()
+    lib = _library(SOURCE)
     b, h, hd = q.shape
     out = torch.empty_like(q)
     err = lib.bb_paged_decode_attention(
         q.data_ptr(), k_slab.data_ptr(), v_slab.data_ptr(),
         page_table.data_ptr(), lens.data_ptr(), out.data_ptr(),
         b, h, k_slab.shape[1], hd, page_table.shape[1], page_size,
-        int(window), float(hd**-0.5 if scale is None else scale),
-        _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
+        int(window), _scale(scale, hd), _DTYPES[q.dtype], _stream(q),
     )
     build.check(err, DECODE)
     build.LAUNCHES[DECODE] += 1
@@ -239,7 +373,7 @@ def paged_chunk_attention(
                              "[B, T, T] on q's device")
         if window:
             raise ValueError(f"{CHUNK}: tree mode takes no window")
-    lib = _library()
+    lib = _library(SOURCE)
     out = torch.empty_like(q)
     err = lib.bb_paged_chunk_attention(
         q.data_ptr(), k_slab.data_ptr(), v_slab.data_ptr(),
@@ -247,9 +381,89 @@ def paged_chunk_attention(
         None if tree_mask is None else tree_mask.data_ptr(), out.data_ptr(),
         b, t, h, k_slab.shape[1], hd, page_table.shape[1], page_size,
         int(window), int(t if t_real is None else t_real),
-        float(hd**-0.5 if scale is None else scale),
-        _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
+        _scale(scale, hd), _DTYPES[q.dtype], _stream(q),
     )
     build.check(err, CHUNK)
     build.LAUNCHES[CHUNK] += 1
+    return out
+
+
+def paged_decode_attention_int4(
+    q: torch.Tensor,  # [B, H, hd]
+    k_slab: QuantSlab,  # codes [S_tot, Hkv, hd/2] u8, scale/zero f16
+    v_slab: QuantSlab,
+    page_table: torch.Tensor,  # [B, NP] i32
+    lens: torch.Tensor,  # [B] i32
+    page_size: int,
+    scale: float | None = None,
+    window: int = 0,
+) -> torch.Tensor:  # [B, H, hd]
+    if q.device.type == "cpu":
+        return paged_decode_attention_int4_reference(
+            q, k_slab, v_slab, page_table, lens, page_size, scale, window
+        )
+    _check(INT4, q, k_slab, v_slab, page_table, lens, page_size)
+    lib = _library(SOURCE)
+    b, h, hd = q.shape
+    out = torch.empty_like(q)
+    err = lib.bb_paged_decode_attention_int4(
+        q.data_ptr(), *(x.data_ptr() for x in k_slab),
+        *(x.data_ptr() for x in v_slab), page_table.data_ptr(),
+        lens.data_ptr(), out.data_ptr(),
+        b, h, k_slab.codes.shape[1], hd, page_table.shape[1], page_size,
+        int(window), _scale(scale, hd), _DTYPES[q.dtype], _stream(q),
+    )
+    build.check(err, INT4)
+    build.LAUNCHES[INT4] += 1
+    return out
+
+
+def paged_ragged_attention(
+    q: torch.Tensor,  # [R, H, hd]
+    k_slab: torch.Tensor,  # [S_tot, Hkv, hd]
+    v_slab: torch.Tensor,
+    page_table: torch.Tensor,  # [B, NP] i32
+    lens: torch.Tensor,  # [B] i32
+    q_seq: torch.Tensor,  # [R] i32
+    q_pos: torch.Tensor,  # [R] i32
+    page_size: int,
+    scale: float | None = None,
+    window: int = 0,
+    nt: torch.Tensor | None = None,  # [B] i32 (tree mode)
+    tree_rows: torch.Tensor | None = None,  # [R, t_max] i32 (tree mode)
+) -> torch.Tensor:  # [R, H, hd]
+    if q.device.type == "cpu":
+        return paged_ragged_attention_reference(
+            q, k_slab, v_slab, page_table, lens, q_seq, q_pos, page_size,
+            scale=scale, window=window, nt=nt, tree_rows=tree_rows,
+        )
+    r, h, hd = q.shape
+    b = page_table.shape[0]
+    _check(RAGGED, q, k_slab, v_slab, page_table, lens, page_size, b=b)
+    rows = [("q_seq", q_seq, (r,)), ("q_pos", q_pos, (r,))]
+    if (nt is None) != (tree_rows is None):
+        raise ValueError(f"{RAGGED}: tree mode takes both nt and tree_rows")
+    if tree_rows is not None:
+        if window:
+            raise ValueError(f"{RAGGED}: tree mode takes no window")
+        rows += [("nt", nt, (b,)),
+                 ("tree_rows", tree_rows, (r, tree_rows.shape[-1]))]
+    for name, x, shape in rows:
+        if (x.dtype != torch.int32 or tuple(x.shape) != shape
+                or x.device != q.device or not x.is_contiguous()):
+            raise ValueError(f"{RAGGED}: {name} must be contiguous int32 "
+                             f"{list(shape)} on q's device")
+    lib = _library(RAGGED_SOURCE)
+    out = torch.empty_like(q)
+    err = lib.bb_paged_ragged_attention(
+        q.data_ptr(), k_slab.data_ptr(), v_slab.data_ptr(),
+        page_table.data_ptr(), lens.data_ptr(), q_seq.data_ptr(),
+        q_pos.data_ptr(), None if nt is None else nt.data_ptr(),
+        None if tree_rows is None else tree_rows.data_ptr(), out.data_ptr(),
+        r, b, h, k_slab.shape[1], hd, page_table.shape[1], page_size,
+        int(window), 0 if tree_rows is None else tree_rows.shape[1],
+        _scale(scale, hd), _DTYPES[q.dtype], _stream(q),
+    )
+    build.check(err, RAGGED)
+    build.LAUNCHES[RAGGED] += 1
     return out

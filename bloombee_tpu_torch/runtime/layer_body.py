@@ -6,9 +6,15 @@ attention and the SiLU MLP. Attention routes three ways, as in the JAX
 package, on flags the executor sets per step:
 
 - `use_paged`: the paged kernels read K/V straight off the arena (decode for
-  T=1, chunk for T>1 including tree-verify steps);
-- `use_flash`: the flash kernel over the step's gathered pages (prefill);
+  T=1, the int4 decode kernel over a quantized arena, chunk for T>1
+  including tree-verify steps);
+- `use_flash`: the flash kernel over the step's gathered pages (prefill;
+  dequantized pages over an int4 arena);
 - otherwise `attend_paged`, the dense masked path over gathered pages.
+
+`layer_body_ragged` is the layer of the ragged step (rows of several
+sessions packed as [1, R, D]): the ragged kernel when `use_kernel` is set,
+else the dense `attend_ragged` over every member's gathered pages.
 
 LoRA, top-k sparse attention, ALiBi and logit soft-capping are left out of
 this slice; the executor refuses specs that need them.
@@ -19,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from bloombee_tpu_torch.kv.arena import arena_write, gather_pages
+from bloombee_tpu_torch.kv.quant import QuantSlab
 from bloombee_tpu_torch.models.spec import ModelSpec
 from bloombee_tpu_torch.ops import apply_rotary, rms_norm, silu_mlp
 from bloombee_tpu_torch.ops.attention import NEG_INF, repeat_kv
@@ -26,6 +33,8 @@ from bloombee_tpu_torch.ops.cuda.flash_attention import flash_attention
 from bloombee_tpu_torch.ops.cuda.paged_attention import (
     paged_chunk_attention,
     paged_decode_attention,
+    paged_decode_attention_int4,
+    paged_ragged_attention,
 )
 
 
@@ -81,8 +90,8 @@ def layer_body(
     page_size: int,
     hidden: torch.Tensor,  # [B, T, D]
     params: dict,  # one layer's params
-    k_slab: torch.Tensor,  # [S_tot, Hkv, hd], updated in place
-    v_slab: torch.Tensor,
+    k_slab,  # [S_tot, Hkv, hd] or QuantSlab, updated in place
+    v_slab,
     cos: torch.Tensor,  # [B, T, hd]
     sin: torch.Tensor,
     write: tuple[torch.Tensor, torch.Tensor],  # kv.arena.write_plan
@@ -115,7 +124,11 @@ def layer_body(
     scale = attn_scale(spec)
     if use_paged:
         if t == 1:
-            attn = paged_decode_attention(
+            decode = (
+                paged_decode_attention_int4
+                if isinstance(k_slab, QuantSlab) else paged_decode_attention
+            )
+            attn = decode(
                 q[:, 0], k_slab, v_slab, page_table, total_lens,
                 page_size=page_size, scale=scale, window=window,
             )[:, None]
@@ -139,6 +152,107 @@ def layer_body(
                 window,
             )
     attn_out = attn.reshape(b, t, h_heads * hd) @ params["o_proj"]
+    return _finish_layer(spec, params, hidden, attn_out)
+
+
+def attend_ragged(
+    spec: ModelSpec,
+    q: torch.Tensor,  # [R, H, hd] rows of every member
+    k_ctx: torch.Tensor,  # [B, S, Hkv, hd] every member's gathered context
+    v_ctx: torch.Tensor,
+    q_pos: torch.Tensor,  # [R] position of each row
+    q_seq: torch.Tensor,  # [R] owning sequence (>= B: padding)
+    total_lens: torch.Tensor,  # [B]
+    window: int,  # 0 = full attention
+    nt: torch.Tensor | None = None,  # [B] in-step tokens (tree mode)
+    tree_rows: torch.Tensor | None = None,  # [R, t_max] (tree mode)
+) -> torch.Tensor:  # [R, H, hd]
+    """Dense route of the ragged step: every row attends the whole [B, S]
+    cross-session context and masks what it does not own (x B masked
+    logits). Tree mode: sequence b's last nt[b] positions are this step's
+    tokens; committed keys stay visible and row i sees the m-th in-step key
+    iff tree_rows[i, m]. Padding rows softmax over nothing they own and come
+    out as garbage the executor slices away."""
+    r, h, hd = q.shape
+    b, s = k_ctx.shape[:2]
+    dev = q.device
+    key_pos = torch.arange(s, device=dev)[None, None, :]  # [1, 1, S]
+    seq_ids = torch.arange(b, device=dev)[None, :, None]  # [1, B, 1]
+    lens = total_lens.long()[None, :, None]  # [1, B, 1]
+    own = (q_seq.long()[:, None, None] == seq_ids) & (key_pos < lens)
+    if tree_rows is None:
+        qp = q_pos.long()[:, None, None]
+        mask = own & (key_pos <= qp)
+        if window > 0:
+            mask = mask & (key_pos > qp - window)
+    else:
+        t_max = tree_rows.shape[1]
+        step_start = lens - nt.long()[None, :, None]
+        m = key_pos - step_start  # [1, B, S] in-step slot (or < 0)
+        vis = tree_rows[:, m[0].clamp(0, t_max - 1)] > 0  # [R, B, S]
+        mask = own & ((key_pos < step_start) | ((m >= 0) & vis))
+
+    n_rep = h // k_ctx.shape[2]
+    k_r = repeat_kv(k_ctx, n_rep)  # [B, S, H, hd]
+    v_r = repeat_kv(v_ctx, n_rep)
+    logits = torch.einsum("rhd,bshd->rhbs", q, k_r).float() * attn_scale(spec)
+    logits = logits.masked_fill(~mask[:, None], NEG_INF)
+    probs = torch.softmax(logits.reshape(r, h, b * s), dim=-1).to(q.dtype)
+    return torch.einsum("rhs,shd->rhd", probs, v_r.reshape(b * s, h, hd))
+
+
+def layer_body_ragged(
+    spec: ModelSpec,
+    page_size: int,
+    hidden: torch.Tensor,  # [1, R, D] every member's rows, packed
+    params: dict,  # one layer's params
+    k_slab,  # [S_tot, Hkv, hd] or QuantSlab, updated in place
+    v_slab,
+    cos: torch.Tensor,  # [1, R, hd]
+    sin: torch.Tensor,
+    write: tuple[torch.Tensor, torch.Tensor],  # kv.arena.write_plan
+    page_table: torch.Tensor,  # [B, NP] i32
+    q_positions: torch.Tensor,  # [1, R] i32
+    total_lens: torch.Tensor,  # [B] i32
+    q_seq: torch.Tensor,  # [R] i32
+    window: int,
+    use_kernel: bool = False,
+    nt: torch.Tensor | None = None,  # [B] i32 (tree mode)
+    tree_rows: torch.Tensor | None = None,  # [R, t_max] i32 (tree mode)
+) -> torch.Tensor:
+    """layer_body for the ragged step: projections, rotary and the arena
+    write are position-wise; attention gets the member structure from
+    (q_seq, q_positions) per row."""
+    _, r, _ = hidden.shape
+    h_heads, kv_heads, hd = (
+        spec.num_attention_heads,
+        spec.num_key_value_heads,
+        spec.head_dim,
+    )
+    x = rms_norm(hidden, params["input_layernorm"], spec.rms_norm_eps)
+    q = (x @ params["q_proj"]).reshape(1, r, h_heads, hd)
+    k = (x @ params["k_proj"]).reshape(1, r, kv_heads, hd)
+    v = (x @ params["v_proj"]).reshape(1, r, kv_heads, hd)
+    q, k = apply_rotary(q, k, cos, sin)
+
+    arena_write(
+        k_slab, v_slab, None, k.reshape(r, kv_heads, hd),
+        v.reshape(r, kv_heads, hd), plan=write,
+    )
+    if use_kernel and not isinstance(k_slab, QuantSlab):
+        attn = paged_ragged_attention(
+            q[0], k_slab, v_slab, page_table, total_lens, q_seq,
+            q_positions[0], page_size=page_size, scale=attn_scale(spec),
+            window=window, nt=nt, tree_rows=tree_rows,
+        )
+    else:
+        k_ctx = gather_pages(k_slab, page_table, page_size).to(hidden.dtype)
+        v_ctx = gather_pages(v_slab, page_table, page_size).to(hidden.dtype)
+        attn = attend_ragged(
+            spec, q[0], k_ctx, v_ctx, q_positions[0], q_seq, total_lens,
+            window, nt=nt, tree_rows=tree_rows,
+        )
+    attn_out = attn.reshape(1, r, h_heads * hd) @ params["o_proj"]
     return _finish_layer(spec, params, hidden, attn_out)
 
 

@@ -4,30 +4,45 @@
     python3 chip_smoke.py            # all phases, one CUDA device
     python3 chip_smoke.py --quick    # phases 1-2 only (build + kernel checks)
     python3 chip_smoke.py --profile  # all phases + torch.profiler breakdowns
+                                     # (decode, ragged and int4 decode
+                                     # steps, a prefill chunk)
 
 Phases:
-1. Build the three CUDA kernels from `bloombee_tpu_torch/ops/cuda/csrc/`
-   with nvcc for sm_90a (both sources compile in parallel).
+1. Build the five CUDA kernels from `bloombee_tpu_torch/ops/cuda/csrc/`
+   with nvcc for sm_90a (the three sources compile in parallel).
 2. Hold each kernel against its plain PyTorch version on the card at
    Llama-3-8B head geometry (H=32, Hkv=8, hd=128, page_size 16): f32 max abs
    error <= 1e-4; bf16 max abs error <= 2e-2 on unit-scale inputs and, for
    every element, <= 1e-2 x |plain| + 1e-3; shapes include a
-   sliding window, a lens=0 row and a tree-mode chunk, plus small cases of
-   every other compiled geometry (hd 64; GQA groups 1, 2, 8). Times each
-   kernel, its plain version and (flash) the library call computing the
-   same function, with CUDA events after warmup.
+   sliding window, a lens=0 row, a tree-mode chunk, ragged causal and tree
+   mixes with padding rows, and int4 decode, plus small cases of every
+   other compiled geometry (hd 64; GQA groups 1, 2, 8). Times each kernel,
+   its plain version and (flash) the library call computing the same
+   function, with CUDA events after warmup.
 3. The executor's path in f32 (TF32 off) at full Llama-3-8B width, 4
    layers, random weights from a seeded generator: a 1000-token prefill of
    batch 2, 8 greedy decodes and a 24-token follow-up must match
    `block_forward` + `dense_attend` over the whole sequence (max abs error
    <= 1e-3 x the reference's max abs value) with identical greedy tokens.
+   Then a ragged_group of 2 decode rows + a 24-token chunk and one of 2
+   decode rows + an 8-node tree (ragged kernel) must match the members run
+   solo and the dense attend_ragged route; and an int4 arena's 8 greedy
+   decodes on the int4 kernel must match its dense route (same limit,
+   identical greedy tokens).
 4. Serving run in bf16: the whole Llama-3-8B (32 layers, full width),
-   1024 arena pages. Four sessions allocated through `CacheManager.allocate`
-   each prefill 1000 tokens (chunks of 512 + 488 -> flash), then 32
-   `decode_group` steps (-> paged decode), one 24-token follow-up turn and
-   one 8-token tree-verify step (-> paged chunk). Launch counts are reset
-   just before this path and read just after it (before any profiling);
-   they must show every kernel launched.
+   1024 arena pages, three paths, each with the launch counts reset just
+   before it and read just after it (before any profiling):
+   - serving: four sessions allocated through `CacheManager.allocate`
+     each prefill 1000 tokens (chunks of 512 + 488 -> flash), then 32
+     `decode_group` steps (-> paged decode), one 24-token follow-up turn
+     and one 8-token tree-verify step (-> paged chunk);
+   - ragged: a ragged step of the 4 sessions' decode rows + a fifth
+     session's 32-token chunk, and a tree step of 4 x 8-node trees (->
+     ragged), each timed beside the same work dispatched separately;
+   - int4: an int4 arena, 4 sessions x 1000-token prefill (flash over the
+     dequantized pages) and 32 `decode_group` steps (-> int4 decode),
+     timed beside the bf16 arena's decode step.
+   Every kernel must show launches on its path.
 
 Prints the card's name and power limit, per-phase results, a
 `{"kernels": [...]}` line, and as its last line
@@ -52,16 +67,21 @@ REPO = pathlib.Path(__file__).resolve().parent
 H, HKV, HD, PS = 32, 8, 128, 16
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense, FLOP/s
-SOURCES = ("flash_attention", "paged_attention")
+SOURCES = ("flash_attention", "paged_attention", "paged_ragged")
 REPLACES = {
     "flash_attention": "bloombee_tpu/ops/pallas/flash_attention.py:124",
     "paged_decode_attention": "bloombee_tpu/ops/pallas/paged_attention.py:545",
     "paged_chunk_attention": "bloombee_tpu/ops/pallas/paged_attention.py:445",
+    "paged_ragged_attention": "bloombee_tpu/ops/pallas/paged_attention.py:733",
+    "paged_decode_attention_int4":
+        "bloombee_tpu/ops/pallas/paged_attention.py:235",
 }
 SOURCE_OF = {
     "flash_attention": "flash_attention",
     "paged_decode_attention": "paged_attention",
     "paged_chunk_attention": "paged_attention",
+    "paged_ragged_attention": "paged_ragged",
+    "paged_decode_attention_int4": "paged_attention",
 }
 
 
@@ -161,6 +181,7 @@ def _page_table(gen, b, n_pages, phys):
 def phase_kernels() -> list[dict]:
     import torch
 
+    from bloombee_tpu_torch.kv.quant import quantize
     from bloombee_tpu_torch.ops.cuda import flash_attention as fa
     from bloombee_tpu_torch.ops.cuda import paged_attention as pa
 
@@ -255,6 +276,22 @@ def phase_kernels() -> list[dict]:
             check("paged_chunk_attention", dtype, geo,
                   pa.paged_chunk_attention(*args),
                   pa.paged_chunk_attention_reference(*args))
+            args = (_unit(gen, (2, h, hd), dtype), quantize(ks),
+                    quantize(vs), pt, ln, PS, None, 0)
+            check("paged_decode_attention_int4", dtype, geo,
+                  pa.paged_decode_attention_int4(*args),
+                  pa.paged_decode_attention_int4_reference(*args))
+            # rows: 5 of a chunk of sequence 0, a decode row of sequence 1,
+            # a padding row
+            q_seq = torch.tensor([0] * 5 + [1, 2], **i32)
+            q_pos = torch.tensor([95, 96, 97, 98, 99, 36, 0], **i32)
+            args = (_unit(gen, (7, h, hd), dtype), ks, vs, pt, ln, q_seq,
+                    q_pos, PS, None, 0)
+            check("paged_ragged_attention", dtype, geo,
+                  pa.paged_ragged_attention(*args),
+                  pa.paged_ragged_attention_reference(*args))
+
+        phase_kernels_ragged_int4(gen, dtype, check)
 
     # times at the serving run's bf16 shapes (phase 4): 4 sessions
     dt = torch.bfloat16
@@ -319,6 +356,7 @@ def phase_kernels() -> list[dict]:
         4 * vis * H * HD, dt,
     )
     rows.append(("paged_chunk_attention", ms, plain, b_ms, by, None))
+    rows += time_ragged_int4(gen)
 
     out = []
     for name, ms, plain, b_ms, by, library in rows:
@@ -341,6 +379,125 @@ def phase_kernels() -> list[dict]:
             "library_ms": library,
         })
     return out
+
+
+def ragged_mix(gen, dtype, window_case: bool):
+    """The ragged kernel's causal mix at Llama-3-8B heads: 4 decode rows,
+    a 24-row chunk, a row of a lens=0 sequence, 3 padding rows (R=32,
+    B=6); or (tree) 4 sessions x 8 tree rows."""
+    import torch
+
+    i32 = dict(dtype=torch.int32, device="cuda")
+    phys = 1024
+    ks, vs = _arena(gen, dtype, phys)
+    if not window_case:
+        lens = torch.tensor([1000, 777, 1024, 500], **i32) + 8
+        nt = torch.full((4,), 8, **i32)
+        tree_rows = torch.cat(
+            [_tree(8, gen) for _ in range(4)]
+        ).to(torch.int32).cuda()
+        q_seq = torch.arange(4, **i32).repeat_interleave(8)
+        q_pos = (lens - 8).repeat_interleave(8)  # depths do not matter
+        pt = _page_table(gen, 4, 80, phys)
+        q = _unit(gen, (32, H, HD), dtype)
+        return (q, ks, vs, pt, lens, q_seq, q_pos, PS), dict(
+            nt=nt, tree_rows=tree_rows
+        )
+    lens = torch.tensor([1000, 777, 1024, 1, 1032, 0], **i32)
+    q_seq = torch.tensor([0, 1, 2, 3] + [4] * 24 + [5, 6, 6, 6], **i32)
+    q_pos = torch.cat([
+        lens[:4] - 1, torch.arange(1008, 1032, **i32),
+        torch.zeros((4,), **i32),
+    ])
+    pt = _page_table(gen, 6, 80, phys)
+    q = _unit(gen, (32, H, HD), dtype)
+    return (q, ks, vs, pt, lens, q_seq, q_pos, PS), {}
+
+
+def phase_kernels_ragged_int4(gen, dtype, check):
+    """Phase 2 cases of the ragged and the int4 decode kernel at Llama-3-8B
+    head geometry."""
+    import torch
+
+    from bloombee_tpu_torch.kv.quant import quantize
+    from bloombee_tpu_torch.ops.cuda import paged_attention as pa
+
+    args, _ = ragged_mix(gen, dtype, window_case=True)
+    for window in (0, 100):
+        check("paged_ragged_attention", dtype,
+              f"4 decode + 24-row chunk + lens=0 row + 3 padding, "
+              f"window={window}",
+              pa.paged_ragged_attention(*args, window=window),
+              pa.paged_ragged_attention_reference(*args, window=window))
+    args, tree = ragged_mix(gen, dtype, window_case=False)
+    check("paged_ragged_attention", dtype, "tree 4 x 8 rows",
+          pa.paged_ragged_attention(*args, **tree),
+          pa.paged_ragged_attention_reference(*args, **tree))
+
+    i32 = dict(dtype=torch.int32, device="cuda")
+    ks, vs = _arena(gen, torch.float32, 1024)
+    kq, vq = quantize(ks), quantize(vs)
+    pt = _page_table(gen, 4, 64, 1024)
+    lens = torch.tensor([1000, 777, 0, 1024], **i32)
+    qd = _unit(gen, (4, H, HD), dtype)
+    for window in (0, 100):
+        args = (qd, kq, vq, pt, lens, PS, None, window)
+        check("paged_decode_attention_int4", dtype,
+              f"window={window} lens=0 row",
+              pa.paged_decode_attention_int4(*args),
+              pa.paged_decode_attention_int4_reference(*args))
+
+
+def time_ragged_int4(gen) -> list[tuple]:
+    """bf16 times of the ragged and int4 kernels at the serving run's
+    shapes (phase 4): the ragged step of 4 decode rows at ~1.05k tokens +
+    a fresh session's 32-token chunk (R bucket 64), and int4 decode of 4
+    sessions at 1001 tokens."""
+    import torch
+
+    from bloombee_tpu_torch.kv.quant import quantize
+    from bloombee_tpu_torch.ops.cuda import paged_attention as pa
+
+    dt = torch.bfloat16
+    i32 = dict(dtype=torch.int32, device="cuda")
+    scale = HD**-0.5
+    rows = []
+
+    ks, vs = _arena(gen, dt, 1024)
+    lens = torch.tensor([1057, 1033, 1033, 1033, 32], **i32)
+    q_seq = torch.tensor([0, 1, 2, 3] + [4] * 32 + [5] * 28, **i32)
+    q_pos = torch.cat([
+        lens[:4] - 1, torch.arange(32, **i32), torch.zeros((28,), **i32)
+    ])
+    pt = _page_table(gen, 5, 128, 1024)
+    q = _unit(gen, (64, H, HD), dt)
+    args = (q, ks, vs, pt, lens, q_seq, q_pos, PS, scale, 0)
+    ms = cuda_ms(lambda: pa.paged_ragged_attention(*args))
+    plain = cuda_ms(lambda: pa.paged_ragged_attention_reference(*args))
+    kv_rows = int(lens[:4].sum()) + 32  # each member's visible rows, once
+    pairs = int(lens[:4].sum()) + 32 * 33 // 2  # visible (query, key)
+    b_ms, by = bound(
+        2 * kv_rows * HKV * HD * 2 + 2 * 36 * H * HD * 2
+        + nbytes(pt[:, :67], lens, q_seq[:36], q_pos[:36]),
+        4 * pairs * H * HD, dt,
+    )
+    rows.append(("paged_ragged_attention", ms, plain, b_ms, by, None))
+
+    kq, vq = quantize(ks), quantize(vs)
+    lens = torch.full((4,), 1001, **i32)
+    pt = _page_table(gen, 4, 64, 1024)
+    qd = _unit(gen, (4, H, HD), dt)
+    args = (qd, kq, vq, pt, lens, PS, scale, 0)
+    ms = cuda_ms(lambda: pa.paged_decode_attention_int4(*args))
+    plain = cuda_ms(lambda: pa.paged_decode_attention_int4_reference(*args))
+    kv_rows = 4 * 1001
+    per_row = HD // 2 + 2 * (HD // 32) * 2  # codes + f16 scale and zero
+    b_ms, by = bound(
+        2 * kv_rows * HKV * per_row + nbytes(qd, qd, pt, lens),
+        4 * kv_rows * H * HD, dt,
+    )
+    rows.append(("paged_decode_attention_int4", ms, plain, b_ms, by, None))
+    return rows
 
 
 # ------------------------------------------------------------- model
@@ -456,9 +613,190 @@ def phase_f32_path():
         f"launches {launches}")
     if not (err <= lim and tokens_ok and torch.isfinite(out).all().item()):
         raise AssertionError("f32 whole-path check failed")
-    if set(launches) != set(REPLACES):
+    want = {"flash_attention", "paged_decode_attention",
+            "paged_chunk_attention"}
+    if set(launches) != want:
         raise AssertionError(f"f32 path missed kernels: {launches}")
+    f32_ragged(layers, client, spec, gen)
+    f32_int4(layers, client, spec, gen)
     del layers, client
+
+
+def executor_pair(layers, spec, manager, dtype):
+    """An executor on the kernel routes and one on the dense routes (its
+    BBTPU_PAGED_MIN_CONTEXT above any context), on the same manager."""
+    import os
+
+    from bloombee_tpu_torch.runtime.executor import SpanExecutor
+
+    def make():
+        return SpanExecutor(
+            layers, spec, manager, max_chunk_tokens=512,
+            compute_dtype=dtype, device="cuda",
+        )
+
+    kernel = make()
+    old = os.environ.get("BBTPU_PAGED_MIN_CONTEXT")
+    os.environ["BBTPU_PAGED_MIN_CONTEXT"] = str(1 << 30)
+    try:
+        dense = make()
+    finally:
+        if old is None:
+            del os.environ["BBTPU_PAGED_MIN_CONTEXT"]
+        else:
+            os.environ["BBTPU_PAGED_MIN_CONTEXT"] = old
+    return kernel, dense
+
+
+def tree_member(t, gen):
+    """[1, t, t] ancestor mask and [1, t] depths of a random tree."""
+    import torch
+
+    tm = _tree(t, gen)
+    depths = tm.sum(-1).to(torch.int32) - 1  # ancestors, self excluded
+    return tm[None].numpy(), depths[None].numpy()
+
+
+def f32_ragged(layers, client, spec, gen):
+    """Phase 3, ragged: one ragged_group of 2 decode rows + a 24-token
+    chunk, and one of 2 decode rows + an 8-node tree, on the ragged
+    kernel's route, against the same members run solo and against the
+    dense attend_ragged route."""
+    import torch
+
+    from bloombee_tpu_torch.kv.cache_manager import CacheManager
+    from bloombee_tpu_torch.models.head import embed_impl, norm_head_impl
+    from bloombee_tpu_torch.ops.cuda import build
+
+    def head(h):
+        return norm_head_impl(client, h, spec.rms_norm_eps).argmax(-1)
+
+    def ids(n, b=1):
+        return torch.randint(
+            0, spec.vocab_size, (b, n), generator=gen, device="cuda"
+        )
+
+    manager = CacheManager(4, 512, PS, HKV, HD, dtype=torch.float32,
+                           device="cuda")
+    ex, ex_dense = executor_pair(layers, spec, manager, torch.float32)
+    results = []
+
+    async def run():
+        async with manager.allocate(2, 1100) as a, \
+                manager.allocate(1, 700) as c:
+            nxt = head(ex.prefill(a, embed_impl(client, ids(1000, 2)),
+                                  fetch=False)[:, -1])
+            ex.prefill(c, embed_impl(client, ids(600)), fetch=False)
+            dec = embed_impl(client, nxt[:, None])  # 2 decode rows
+            tm, dep = tree_member(8, gen)
+            for name, member, tree, depths in (
+                ("24-token chunk", embed_impl(client, ids(24)), None, None),
+                ("8-node tree", embed_impl(client, ids(8)), tm, dep),
+            ):
+                snap = [manager.context_lens(h).tolist() for h in (a, c)]
+
+                def rewind():
+                    for h, lens in zip((a, c), snap):
+                        manager.truncate_speculative(h, lens)
+
+                solo_a, _ = ex.ragged_group([a], [dec])
+                rewind()
+                solo_c, _ = ex.ragged_group(
+                    [c], [member], tree_masks=[tree], depths_list=[depths]
+                )
+                rewind()
+                solo = torch.cat([solo_a, solo_c])
+                outs = {}
+                for route, e in (("kernel", ex), ("dense", ex_dense)):
+                    build.reset_launch_counts()
+                    out, _ = e.ragged_group(
+                        [a, c], [dec, member], tree_masks=[None, tree],
+                        depths_list=[None, depths],
+                    )
+                    torch.cuda.synchronize()
+                    outs[route] = (out, dict(build.LAUNCHES))
+                    rewind()
+                results.append((name, solo, outs))
+
+    asyncio.run(run())
+    for name, solo, outs in results:
+        (fused, launches), (dense, dense_launches) = (
+            outs["kernel"], outs["dense"]
+        )
+        lim = 1e-3 * solo.abs().max().item()
+        err_solo = (fused - solo).abs().max().item()
+        err_dense = (fused - dense).abs().max().item()
+        tokens = torch.equal(head(fused), head(solo)) and torch.equal(
+            head(fused), head(dense)
+        )
+        say(f"[f32-ragged] 2 decode rows + {name}: fused vs solo "
+            f"max_abs_err={err_solo:.3e}, vs dense attend_ragged "
+            f"{err_dense:.3e} (limit {lim:.3e}), greedy tokens identical: "
+            f"{tokens}, launches kernel route {launches}, dense route "
+            f"{dense_launches}")
+        ok = (
+            err_solo <= lim and err_dense <= lim and tokens
+            and torch.isfinite(fused).all().item()
+            and launches.get("paged_ragged_attention", 0) == 4
+            and "paged_ragged_attention" not in dense_launches
+        )
+        if not ok:
+            raise AssertionError(f"f32 ragged check failed: {name}")
+
+
+def f32_int4(layers, client, spec, gen):
+    """Phase 3, int4: an int4 arena prefilled with 1000 tokens x2, then 8
+    greedy decodes on the int4 kernel's route against the same 8 decodes
+    on the dense route over the same arena."""
+    import torch
+
+    from bloombee_tpu_torch.kv.cache_manager import CacheManager
+    from bloombee_tpu_torch.models.head import embed_impl, norm_head_impl
+    from bloombee_tpu_torch.ops.cuda import build
+
+    def head(h):
+        return norm_head_impl(client, h, spec.rms_norm_eps).argmax(-1)
+
+    manager = CacheManager(4, 256, PS, HKV, HD, dtype=torch.float32,
+                           device="cuda", quant="int4")
+    ex, ex_dense = executor_pair(layers, spec, manager, torch.float32)
+    runs = {}
+
+    async def run():
+        async with manager.allocate(2, 1100) as h:
+            ids = torch.randint(0, spec.vocab_size, (2, 1000), generator=gen,
+                                device="cuda")
+            first = head(ex.prefill(h, embed_impl(client, ids),
+                                    fetch=False)[:, -1])
+            for route, e in (("kernel", ex), ("dense", ex_dense)):
+                build.reset_launch_counts()
+                nxt, outs, tokens = first, [], []
+                for _ in range(8):
+                    out = e.decode(h, embed_impl(client, nxt[:, None]),
+                                   commit=False, fetch=False)
+                    nxt = head(out[:, -1])
+                    outs.append(out)
+                    tokens.append(nxt)
+                manager.rollback(h)
+                torch.cuda.synchronize()
+                runs[route] = (torch.cat(outs, 1), torch.stack(tokens, 1),
+                               dict(build.LAUNCHES))
+
+    asyncio.run(run())
+    (out, tokens, launches), (ref, ref_tokens, dense_launches) = (
+        runs["kernel"], runs["dense"]
+    )
+    lim = 1e-3 * ref.abs().max().item()
+    err = (out - ref).abs().max().item()
+    same = torch.equal(tokens, ref_tokens)
+    say(f"[f32-int4] int4 arena, prefill 1000 x2 + 8 greedy decodes, int4 "
+        f"kernel route vs dense route: max_abs_err={err:.3e} (limit "
+        f"{lim:.3e}), greedy tokens identical: {same}, launches kernel "
+        f"route {launches}, dense route {dense_launches}")
+    if not (err <= lim and same and torch.isfinite(out).all().item()
+            and launches.get("paged_decode_attention_int4", 0) == 32
+            and "paged_decode_attention_int4" not in dense_launches):
+        raise AssertionError("f32 int4 check failed")
 
 
 # ------------------------------------------------------------- phase 4
@@ -499,7 +837,164 @@ def profiled(label: str, fn, top: int = 12):
         say(f"[profile]   {ms:9.3f} ms  x{count:<5d} {key[:90]}")
 
 
-def phase_serving(profile: bool = False) -> dict:
+def median_s(fn, reps: int = 5) -> float:
+    """Median host time of fn() ending in a device synchronize, after one
+    untimed call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return sorted(times)[reps // 2]
+
+
+def serving_ragged(ex, manager, sessions, fresh, client, gen, outs):
+    """Phase 4's ragged path, on the serving sessions: a ragged step of the
+    4 sessions' decode rows + a fresh fifth session's 32-token chunk
+    (r=36 -> rb=64, 64 x 32 heads = 2048: the ragged kernel's route), and a
+    tree ragged step of 4 x 8-node trees; each beside the same work
+    dispatched separately. Every step is rewound after it runs. Returns
+    the median times and a function running one fused step (profiling)."""
+    import torch
+
+    from bloombee_tpu_torch.models.head import embed_impl
+
+    vocab = client["embed"].shape[0]
+
+    def embed(n):
+        return embed_impl(client, torch.randint(
+            0, vocab, (1, n), generator=gen, device="cuda"
+        ))
+
+    members = [*sessions, fresh]
+
+    def rewound(fn):
+        """fn as a step that leaves every member's length as it found it."""
+        def step():
+            snap = [manager.context_lens(h).tolist() for h in members]
+            fn()
+            for h, lens in zip(members, snap):
+                manager.truncate_speculative(h, lens)
+        return step
+
+    decs = [embed(1) for _ in sessions]
+    chunk = embed(32)
+    trees = [tree_member(8, gen) for _ in sessions]
+    drafts = [embed(8) for _ in sessions]
+
+    @rewound
+    def mixed():
+        outs.append(ex.mixed_group(members, [*decs, chunk])[0])
+
+    @rewound
+    def mixed_separate():
+        outs.append(ex.decode_group(sessions, decs)[0])
+        outs.append(ex.prefill_chunk(fresh, chunk))
+
+    @rewound
+    def tree():
+        outs.append(ex.tree_group(
+            sessions, drafts, [t[0] for t in trees], [t[1] for t in trees]
+        )[0])
+
+    @rewound
+    def tree_separate():
+        for h, d, (tm, dep) in zip(sessions, drafts, trees):
+            outs.append(ex.decode(h, d, commit=False, tree_mask=tm,
+                                  depths=dep, fetch=False))
+
+    stats = {
+        "mixed_s": median_s(mixed),
+        "mixed_separate_s": median_s(mixed_separate),
+        "tree_s": median_s(tree),
+        "tree_separate_s": median_s(tree_separate),
+    }
+    return stats, mixed
+
+
+def arena_gib(manager) -> float:
+    from bloombee_tpu_torch.kv.quant import slab_nbytes
+
+    return sum(slab_nbytes(slab) for slab in manager.arena.values()) / 2**30
+
+
+def serving_int4(layers, spec, client, gen, profile: bool) -> dict:
+    """Phase 4's int4 path: an int4 arena of 1024 pages, 4 sessions, a
+    1000-token prefill each (flash over the dequantized pages), then 32
+    decode_group steps (the int4 decode kernel); with `profile`, 4 more
+    steps traced after the launch counts are read."""
+    import torch
+
+    from bloombee_tpu_torch.kv.cache_manager import CacheManager
+    from bloombee_tpu_torch.models.head import embed_impl, norm_head_impl
+    from bloombee_tpu_torch.ops.cuda import build
+    from bloombee_tpu_torch.runtime.executor import SpanExecutor
+
+    def head(h):
+        return norm_head_impl(client, h, spec.rms_norm_eps).argmax(-1)
+
+    manager = CacheManager(32, 1024, PS, HKV, HD, dtype=torch.bfloat16,
+                           device="cuda", quant="int4")
+    ex = SpanExecutor(layers, spec, manager, max_chunk_tokens=512,
+                      compute_dtype=torch.bfloat16, device="cuda")
+    prompts = torch.randint(0, spec.vocab_size, (4, 1000), generator=gen,
+                            device="cuda")
+    stats = {"arena_gib": arena_gib(manager)}
+
+    async def run():
+        async with contextlib.AsyncExitStack() as stack:
+            handles = [
+                await stack.enter_async_context(manager.allocate(1, 1600))
+                for _ in range(4)
+            ]
+            torch.cuda.synchronize()
+            build.reset_launch_counts()
+            t0 = time.perf_counter()
+            nxt = torch.cat([
+                head(ex.prefill(h, embed_impl(client, prompts[i : i + 1]),
+                                fetch=False)[:, -1])
+                for i, h in enumerate(handles)
+            ])
+            torch.cuda.synchronize()
+            stats["prefill_s"] = time.perf_counter() - t0
+            outs, step_s = [], []
+
+            def decode_step():
+                nonlocal nxt
+                hid = embed_impl(client, nxt[:, None])
+                out, combined = ex.decode_group(
+                    handles, [hid[i : i + 1] for i in range(4)]
+                )
+                manager.commit(combined)
+                nxt = head(out[:, -1])
+                outs.append(out)
+
+            for _ in range(32):
+                t1 = time.perf_counter()
+                decode_step()
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t1)
+            stats["launches"] = dict(build.LAUNCHES)
+            stats["finite"] = all(
+                torch.isfinite(o.float()).all().item() for o in outs
+            )
+            if profile:
+                profiled("4 decode_group steps (4 sessions, int4 arena)",
+                         lambda: [decode_step() for _ in range(4)])
+            steady = sorted(step_s[2:])
+            stats["decode_step_s"] = steady[len(steady) // 2]
+
+    asyncio.run(run())
+    return stats
+
+
+def phase_serving(profile: bool = False) -> dict[str, dict]:
+    """Phase 4; returns each path's launch counts."""
     import torch
 
     from bloombee_tpu_torch.kv.cache_manager import CacheManager
@@ -528,11 +1023,13 @@ def phase_serving(profile: bool = False) -> dict:
         prompts = torch.randint(
             0, spec.vocab_size, (4, 1000), generator=gen, device="cuda"
         )
-        stats = {}
+        stats = {"launches": {}, "arena_gib": arena_gib(manager)}
         async with contextlib.AsyncExitStack() as stack:
-            handles = [
+            # four serving sessions, and a fifth whose first chunk rides
+            # the ragged step
+            *handles, fresh = [
                 await stack.enter_async_context(manager.allocate(1, 1600))
-                for _ in range(4)
+                for _ in range(5)
             ]
             torch.cuda.synchronize()
             build.reset_launch_counts()
@@ -591,13 +1088,23 @@ def phase_serving(profile: bool = False) -> dict:
             )
             manager.rollback(handles[1])
             torch.cuda.synchronize()
-            stats["launches"] = dict(build.LAUNCHES)  # the main path's own
+            stats["launches"]["serving"] = dict(build.LAUNCHES)
+
+            build.reset_launch_counts()
+            ragged, mixed_step = serving_ragged(
+                ex, manager, handles, fresh, client, gen, outs
+            )
+            torch.cuda.synchronize()
+            stats["launches"]["ragged"] = dict(build.LAUNCHES)
+            stats.update(ragged)
             stats["finite"] = all(
                 torch.isfinite(o.float()).all().item() for o in outs
             )
             if profile:
                 profiled("4 decode_group steps (4 sessions)",
                          lambda: [decode_step() for _ in range(4)])
+                profiled("one ragged step (4 decode rows + a 32-token "
+                         "chunk)", mixed_step)
                 extra = torch.randint(
                     0, spec.vocab_size, (1, 512), generator=gen,
                     device="cuda",
@@ -621,17 +1128,43 @@ def phase_serving(profile: bool = False) -> dict:
 
     stats = asyncio.run(run())
     tok_s = 4 / stats["decode_step_s"]
+    launches = stats["launches"]
     say(f"[serving] prefill 4 x 1000 tokens: {stats['prefill_s']:.3f} s "
         f"({4000 / stats['prefill_s']:.0f} tok/s); decode_group of 4, median "
         f"step {stats['decode_step_s'] * 1e3:.2f} ms ({tok_s:.1f} tok/s, "
         f"{tok_s / 4:.1f} tok/s/session); finite={stats['finite']}; "
-        f"launches {stats['launches']}")
-    if not stats["finite"]:
+        f"launches {launches['serving']}")
+    say(f"[serving-ragged] ragged step of 4 decode rows + a 32-token chunk: "
+        f"median {stats['mixed_s'] * 1e3:.2f} ms vs the same work "
+        f"dispatched separately (decode_group + prefill_chunk) "
+        f"{stats['mixed_separate_s'] * 1e3:.2f} ms; tree ragged step of 4 x "
+        f"8-node trees {stats['tree_s'] * 1e3:.2f} ms vs 4 solo tree "
+        f"verifies {stats['tree_separate_s'] * 1e3:.2f} ms; launches "
+        f"{launches['ragged']}")
+    torch.cuda.synchronize()
+    int4 = serving_int4(layers, spec, client, gen, profile)
+    launches["int4"] = int4["launches"]
+    say(f"[serving-int4] int4 arena of {int4['arena_gib']:.3f} GiB (bf16: "
+        f"{stats['arena_gib']:.3f} GiB): prefill 4 x 1000 tokens "
+        f"{int4['prefill_s']:.3f} s; decode_group of 4, median step "
+        f"{int4['decode_step_s'] * 1e3:.2f} ms vs the bf16 arena's "
+        f"{stats['decode_step_s'] * 1e3:.2f} ms; finite={int4['finite']}; "
+        f"launches {launches['int4']}")
+    if not (stats["finite"] and int4["finite"]):
         raise AssertionError("serving run produced non-finite outputs")
-    missing = [k for k in REPLACES if stats["launches"].get(k, 0) == 0]
+    want = {
+        "serving": ("flash_attention", "paged_decode_attention",
+                    "paged_chunk_attention"),
+        "ragged": ("paged_ragged_attention",),
+        "int4": ("paged_decode_attention_int4", "flash_attention"),
+    }
+    missing = [
+        (path, k) for path, ks in want.items() for k in ks
+        if launches[path].get(k, 0) == 0
+    ]
     if missing:
         raise AssertionError(f"serving run never launched {missing}")
-    return stats["launches"]
+    return launches
 
 
 def main() -> int:
@@ -643,9 +1176,9 @@ def main() -> int:
     )
     parser.add_argument(
         "--profile", action="store_true",
-        help="after the serving run's main path (and its launch counts), "
-        "trace 4 more decode steps and one prefill chunk with "
-        "torch.profiler and print where the time goes",
+        help="after each serving path (and its launch counts), trace 4 "
+        "more decode steps, one ragged step, one prefill chunk and 4 int4 "
+        "decode steps with torch.profiler and print where the time goes",
     )
     args = parser.parse_args()
     import torch
@@ -670,12 +1203,16 @@ def main() -> int:
             return 3
         phase_f32_path()
         torch.cuda.empty_cache()
-        launches = phase_serving(args.profile)
+        by_path = phase_serving(args.profile)
     except Exception:
         traceback.print_exc()
         return 1
     for row in kernels:
-        row["launches"] = launches.get(row["name"], 0)
+        row["launches_by_path"] = {
+            path: counts[row["name"]]
+            for path, counts in by_path.items() if row["name"] in counts
+        }
+        row["launches"] = sum(row["launches_by_path"].values())
     say(json.dumps({"kernels": kernels}))
     say(card_line())
     say(json.dumps({

@@ -23,6 +23,7 @@ from bloombee_tpu.ops.pallas.paged_attention import (
     paged_chunk_attention as j_chunk,
     paged_decode_attention as j_decode,
 )
+from bloombee_tpu_torch.kv.quant import make_quant_slab, quantize
 from bloombee_tpu_torch.ops.cuda import build
 from bloombee_tpu_torch.ops.cuda import flash_attention as t_flash
 from bloombee_tpu_torch.ops.cuda import paged_attention as t_paged
@@ -204,10 +205,25 @@ def test_wrappers_run_plain_version_on_cpu_without_counting():
         t_flash.flash_attention(qf, kf, kf),
         t_flash.flash_attention_reference(qf, kf, kf),
     )
+    qk, qv = (quantize(x) for x in args[1:3])
+    int4_args = (args[0], qk, qv, *args[3:])
+    assert torch.equal(
+        t_paged.paged_decode_attention_int4(*int4_args),
+        t_paged.paged_decode_attention_int4_reference(*int4_args),
+    )
+    rows = torch.tensor([0, 0, 1], dtype=torch.int32)
+    pos = torch.tensor([38, 39, 8], dtype=torch.int32)
+    ragged_args = (args[0][rows], *args[1:5], rows, pos, 16)
+    assert torch.equal(
+        t_paged.paged_ragged_attention(*ragged_args, window=7),
+        t_paged.paged_ragged_attention_reference(*ragged_args, window=7),
+    )
     assert not build.LAUNCHES
 
 
-@pytest.mark.parametrize("kernel", ["flash", "decode", "chunk"])
+@pytest.mark.parametrize(
+    "kernel", ["flash", "decode", "chunk", "int4", "ragged"]
+)
 def test_wrappers_never_fall_back_off_the_cpu(kernel):
     """A tensor that is not on the CPU never reaches a plain version: on a
     non-CUDA device the wrapper raises before any launch."""
@@ -226,8 +242,19 @@ def test_wrappers_never_fall_back_off_the_cpu(kernel):
             t_paged.paged_decode_attention(
                 torch.empty((1, 4, 64), **meta), slab, slab, pt, lens, 16
             )
-        else:
+        elif kernel == "chunk":
             t_paged.paged_chunk_attention(
                 torch.empty((1, 3, 4, 64), **meta), slab, slab, pt, lens, 16
+            )
+        elif kernel == "int4":
+            quant = make_quant_slab((32, 2, 64), device="meta")
+            t_paged.paged_decode_attention_int4(
+                torch.empty((1, 4, 64), **meta), quant, quant, pt, lens, 16
+            )
+        else:
+            rows = torch.zeros((3,), dtype=torch.int32, device="meta")
+            t_paged.paged_ragged_attention(
+                torch.empty((3, 4, 64), **meta), slab, slab, pt, lens, rows,
+                rows, 16,
             )
     assert not build.LAUNCHES

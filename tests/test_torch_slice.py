@@ -199,10 +199,10 @@ def test_paged_min_context_routes_to_the_dense_path(monkeypatch):
 
 def test_layers_subspan_and_guards_match_jax():
     """`layers=(1, 2)` runs only the span's second layer (a session entering
-    mid-span) on both packages; the port refuses multi-token members in
-    decode_group and specs its Llama layer body cannot serve. The prefill
-    has the shape of the test above's second session, so the JAX side reuses
-    that step's compile."""
+    mid-span) on both packages; the port's decode_group takes a multi-token
+    member, and the port refuses specs its Llama layer body cannot serve.
+    The prefill has the shape of the test above's second session, so the
+    JAX side reuses that step's compile."""
     rng = np.random.default_rng(1)
     params = {
         k: (rng.standard_normal((2, *s)) / (8 if len(s) == 2 else 1)).astype(
@@ -236,9 +236,13 @@ def test_layers_subspan_and_guards_match_jax():
     port = TorchSide(params, client)
 
     async def guards():
+        # decode_group takes a multi-token member as the JAX package's does
+        # (one ragged dispatch; tests/test_torch_ragged.py holds the values
+        # against JAX)
         async with port.manager.allocate(1, 32) as h:
-            with pytest.raises(ValueError, match="single-token"):
-                port.ex.decode_group([h], [hidden[:, :2]])
+            out, combined = port.ex.decode_group([h], [hidden[:, :2]])
+            assert tuple(out.shape) == (2, 1, 64)
+            assert port.manager.context_lens(combined).tolist() == [2]
 
     asyncio.run(guards())
     with pytest.raises(ValueError, match="does not cover"):
