@@ -9,21 +9,50 @@
 // softmax and the P.V sum are f32; a row with no visible key outputs zeros.
 // The output has q's dtype (f32 or bf16).
 //
-// Design: one CTA of 256 threads per (64-query tile, head, batch row). The
-// tile's queries (pre-scaled) sit in shared memory as f32; K/V tiles of 32
-// keys are staged through shared memory, converted to f32. Four threads own
-// one query row: each computes 8 of the tile's 32 scores, the row's max and
-// sum reduce over those four lanes with shuffles, and each thread keeps a
-// quarter of the row's output accumulator in registers. Key tiles past the
-// row block's last visible key are never loaded (the Pallas kernel's block
-// skip). No tensor cores: the products run on the f32 pipes.
+// Bound on H100: operations. At prefill shapes the work is 4*T*S*H*hd
+// flops against reading q, k, v once, far above the card's ~295 flops per
+// byte, so the tensor cores set the limit. Two kernels behind one entry
+// point, by dtype:
 //
-// Bound on H100: at prefill shapes the work is compute (4*T*S*H*hd flops
-// against reading q, k, v once); this kernel is far from the tensor-core
-// roofline by design. wgmma/TMA tiling is later work.
+// bf16 (flash_bf16_kernel, the serving path): FlashAttention-2's loop on
+// Hopper's warpgroup tensor-core instructions (wgmma). One CTA of one
+// warpgroup (4 warps) per (64-query tile, head, batch row); warp w owns
+// query rows 16w..16w+15. The Q tile is copied to shared memory once; K/V
+// tiles of 64 keys stream through a 2-stage shared-memory ring filled by
+// cp.async, so tile j+1 loads while tile j is multiplied. All tiles sit in
+// wgmma's 128-byte-swizzled layout (conflict-free for the tensor cores).
+// S = Q K^T is one wgmma m64n64k16 per 16 dims, both operands read from
+// shared memory by descriptor, the sums in registers. The online softmax
+// runs there in f32 (exp2 with log2(e) folded into the scale), each row's
+// max and sum reduced over the 4 lanes that share it. O += P V is wgmma
+// m64n{hd}k16 with P from registers (the S accumulators are already in
+// the A-operand layout) and V read MN-major from shared memory. P enters
+// that product as two bf16 terms (hi + lo, two wgmma each): one bf16 term
+// (as SDPA rounds it) errs by up to 2^-9 of each weight, which on rows
+// with few visible keys breaks the port's per-element bf16 limit (1e-2
+// |plain| + 1e-3); the second term costs a third more tensor-core work
+// and keeps P to ~16 bits. The mask is computed only on tiles that cross
+// some row's visible edge (causal edge, lens[b] or S, per batch row);
+// tiles past the tile's last visible key are never loaded and rows past
+// it are zero-filled. CTAs of the last query tiles (the most keys when
+// causal) are launched first.
+//
+// f32 (flash_f32_kernel, the f32 reference path): the tensor cores have no
+// f32 product (TF32 keeps ~3 digits), so this one runs on the f32 pipes.
+// One CTA of 256 threads per (64-query tile, head, batch row). The tile's
+// queries (pre-scaled) sit in shared memory; K/V tiles of 32 keys are
+// staged through shared memory. Four threads own one query row: each
+// computes 8 of the tile's 32 scores, the row's max and sum reduce over
+// those four lanes with shuffles, and each thread keeps a quarter of the
+// row's output accumulator in registers. Key tiles past the row block's
+// last visible key are never loaded (the Pallas kernel's block skip).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "async_copy.cuh"
 
 namespace {
 
@@ -32,31 +61,20 @@ constexpr int BK = 32;   // keys per shared-memory tile
 constexpr int NT = 256;  // threads per CTA: four per query row
 constexpr float NEG = -1e30f;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
 template <int HD>
 constexpr size_t smem_bytes() {
   return sizeof(float) *
          (BQ * (HD + 1) + BK * (HD + 1) + BK * HD + BQ * (BK + 1));
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(NT)
-    flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 const int* __restrict__ starts, const int* __restrict__ lens,
-                 int TQ, int S, int H, int HKV, float scale, int causal) {
+    flash_f32_kernel(const float* __restrict__ q,
+                     const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     const int* __restrict__ starts,
+                     const int* __restrict__ lens, int TQ, int S, int H,
+                     int HKV, float scale, int causal) {
   extern __shared__ float smem[];
   float* Qs = smem;                  // [BQ][HD + 1]
   float* Ks = Qs + BQ * (HD + 1);    // [BK][HD + 1]
@@ -75,8 +93,7 @@ __global__ void __launch_bounds__(NT)
     const int r = idx / HD, d = idx % HD;
     const int qi = q0 + r;
     Qs[r * (HD + 1) + d] =
-        qi < TQ ? to_f(q[(((size_t)b * TQ + qi) * H + h) * HD + d]) * scale
-                : 0.f;
+        qi < TQ ? q[(((size_t)b * TQ + qi) * H + h) * HD + d] * scale : 0.f;
   }
 
   // keys past this tile's last visible key are never loaded
@@ -103,8 +120,8 @@ __global__ void __launch_bounds__(NT)
       float kx = 0.f, vx = 0.f;
       if (kk < S) {
         const size_t off = (((size_t)b * S + kk) * HKV + kvh) * HD + d;
-        kx = to_f(k[off]);
-        vx = to_f(v[off]);
+        kx = k[off];
+        vx = v[off];
       }
       Ks[r * (HD + 1) + d] = kx;
       Vs[r * HD + d] = vx;
@@ -162,32 +179,404 @@ __global__ void __launch_bounds__(NT)
 
   if (row_live) {
     const float denom = fmaxf(l, 1e-30f);
-    T* orow = o + (((size_t)b * TQ + qi) * H + h) * HD;
+    float* orow = o + (((size_t)b * TQ + qi) * H + h) * HD;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) orow[sub + 4 * c] = from_f<T>(acc[c] / denom);
+    for (int c = 0; c < NC; ++c) orow[sub + 4 * c] = acc[c] / denom;
   }
 }
 
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o,
-           const int* starts, const int* lens, int B, int TQ, int S, int H,
-           int HKV, float scale, int causal, cudaStream_t stream) {
+template <int HD>
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               const int* starts, const int* lens, int B, int TQ, int S,
+               int H, int HKV, float scale, int causal, cudaStream_t stream) {
   const size_t smem = smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_f32_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((TQ + BQ - 1) / BQ, H, B);
-  flash_kernel<T, HD><<<grid, NT, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, starts, lens, TQ, S, H,
-      HKV, scale, causal);
+  flash_f32_kernel<HD><<<grid, NT, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, starts,
+      lens, TQ, S, H, HKV, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------- bf16 on tensor cores
+constexpr int TC_BQ = 64;   // queries per CTA: one warpgroup, 16 rows a warp
+constexpr int TC_BK = 64;   // keys per K/V tile
+constexpr int TC_NT = 128;  // threads per CTA
+constexpr unsigned FULL = 0xffffffffu;
+
+// Shared memory holds the Q tile and a 2-stage ring of K and V tiles in
+// wgmma's 128-byte-swizzled layout: a tile of R rows x HD bf16 is HD/64
+// column blocks of [R][64] (128-byte rows), and the 16-byte piece p of row
+// r sits at piece p ^ (r % 8) of its row, so the 8 rows of every 1024-byte
+// atom spread over all banks. 1024 bytes of slack align the atoms.
+template <int HD>
+constexpr size_t tc_smem_bytes() {
+  return 1024 + sizeof(__nv_bfloat16) * (TC_BQ + 4 * TC_BK) * HD;
+}
+
+// Byte offset of the 16-byte piece p (elements 8p..8p+7) of row r in a
+// swizzled tile of R rows.
+__device__ __forceinline__ int swizzled(int R, int r, int p) {
+  return (p >> 3) * R * 128 + r * 128 + (((p & 7) ^ (r & 7)) << 4);
+}
+
+// wgmma shared-memory matrix descriptor, 128-byte swizzle; lbo / sbo: the
+// byte strides between column blocks and between 8-row groups.
+__device__ __forceinline__ uint64_t smem_desc(const void* p, unsigned lbo,
+                                              unsigned sbo) {
+  const uint64_t a = bbasync::smem_addr(p);
+  return ((a & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Pin registers that an in-flight wgmma reads or writes: the compiler may
+// not move their uses across this point.
+template <int N>
+__device__ __forceinline__ void pin(float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(x[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void pin(unsigned (&x)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(x[i][j])::"memory");
+}
+
+// D = A B (init) or D += A B for m64n64k16: A (64 x 16) and B (16 x 64),
+// both K-major in shared memory, by descriptor.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a,
+                                             uint64_t desc_b, int init) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.eq.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(init));
+}
+
+// D += A B for m64n64k16: A (64 x 16) from registers (each warp's 16
+// rows in the mma.m16n8k16 A layout), B (16 x 64) MN-major in shared
+// memory, by descriptor.
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                              const unsigned (&a)[4],
+                                              uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// D += A B for m64n128k16: A (64 x 16) from registers (each warp's 16
+// rows in the mma.m16n8k16 A layout), B (16 x 128) MN-major in shared
+// memory, by descriptor.
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                              const unsigned (&a)[4],
+                                              uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+template <int HD>
+__device__ __forceinline__ void wgmma_pv(float (&o)[HD / 2],
+                                         const unsigned (&a)[4],
+                                         uint64_t desc_b) {
+  if constexpr (HD == 128) {
+    wgmma_rs_n128(o, a, desc_b);
+  } else {
+    wgmma_rs_n64(o, a, desc_b);
+  }
+}
+
+// 2^x by the SFU (ex2.approx, ~2^-22 relative error; 2^-inf = 0).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The pair (x, y) as two bf16 pairs, hi = bf16(x, y) and lo = bf16 of the
+// remainder, so hi + lo carries ~16 bits of each value.
+__device__ __forceinline__ void split_bf16(float x, float y, unsigned& hi,
+                                           unsigned& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x - hf.x, y - hf.y);
+  hi = *reinterpret_cast<const unsigned*>(&h);
+  lo = *reinterpret_cast<const unsigned*>(&l);
+}
+
+// Accumulator layout of wgmma m64nNk16 (lane = 4 * gq + tq of warp w):
+// d[4j .. 4j+1] hold row 16w + gq, columns 8j + 2tq and 8j + 2tq + 1;
+// d[4j+2 .. 4j+3] row 16w + gq + 8. So each thread holds two query rows,
+// and a row's values are spread over the 4 lanes of a quad.
+template <int HD>
+__global__ void __launch_bounds__(TC_NT)
+    flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                      const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v,
+                      __nv_bfloat16* __restrict__ o,
+                      const int* __restrict__ starts,
+                      const int* __restrict__ lens, int TQ, int S, int H,
+                      int HKV, float scale, int causal) {
+  using bf16 = __nv_bfloat16;
+  constexpr int CH = HD / 8;      // 16-byte pieces per row
+  constexpr int NS = TC_BK / 2;   // S accumulators per thread
+  constexpr int NO = HD / 2;      // O accumulators per thread
+  constexpr int KQ = HD / 16;     // 16-deep steps of Q K^T
+  constexpr int KP = TC_BK / 16;  // 16-deep steps of P V
+  constexpr int QBYTES = TC_BQ * HD * 2, KVBYTES = TC_BK * HD * 2;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Qs = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* Ks = Qs + QBYTES;        // [2] stages
+  unsigned char* Vs = Ks + 2 * KVBYTES;   // [2] stages
+
+  const int tile = gridDim.x - 1 - blockIdx.x;  // longest tiles first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (H / HKV);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int q0 = tile * TC_BQ;
+  const int start = starts[b], len = lens[b];
+  // keys [0, kend) are visible to some row of the tile; [0, kfull) to all
+  int kend = min(len, S), kfull = kend;
+  if (causal) {
+    kend = min(kend, start + min(q0 + TC_BQ, TQ));
+    kfull = min(kfull, start + q0 + 1);
+  }
+  const int ntiles = kend > 0 ? (kend + TC_BK - 1) / TC_BK : 0;
+
+  const bf16* qb = q + ((size_t)b * TQ * H + h) * HD;
+  const bf16* kb = k + ((size_t)b * S * HKV + kvh) * HD;
+  const bf16* vb = v + ((size_t)b * S * HKV + kvh) * HD;
+  for (int i = tid; i < TC_BQ * CH; i += TC_NT) {
+    const int r = i / CH, p = i % CH, qi = q0 + r;
+    bbasync::copy16(Qs + swizzled(TC_BQ, r, p),
+                    qb + (size_t)min(qi, TQ - 1) * H * HD + p * 8, qi < TQ);
+  }
+  auto load_kv = [&](int t) {
+    unsigned char* kd = Ks + (t & 1) * KVBYTES;
+    unsigned char* vd = Vs + (t & 1) * KVBYTES;
+    for (int i = tid; i < TC_BK * CH; i += TC_NT) {
+      const int r = i / CH, p = i % CH, kk = t * TC_BK + r;
+      const size_t off = (size_t)min(kk, S - 1) * HKV * HD + p * 8;
+      bbasync::copy16(kd + swizzled(TC_BK, r, p), kb + off, kk < kend);
+      bbasync::copy16(vd + swizzled(TC_BK, r, p), vb + off, kk < kend);
+    }
+  };
+  if (ntiles > 0) load_kv(0);
+  bbasync::commit();  // the Q tile and K/V tile 0
+
+  const int gq = lane >> 2, tq = lane & 3;
+  const int qrow = q0 + warp * 16 + gq;  // this thread's rows: +0 and +8
+  int lim[2];                            // each row's visible key limit
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    lim[i] = min(len, S);
+    if (causal) lim[i] = min(lim[i], start + qrow + 8 * i + 1);
+  }
+  const float scale2 = scale * 1.4426950408889634f;  // exp(x) = exp2(x log2e)
+  const float NEG_INF = __int_as_float(0xff800000);
+
+  float s[NS], oacc[NO];
+#pragma unroll
+  for (int i = 0; i < NS; ++i) s[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < NO; ++i) oacc[i] = 0.f;
+  float mrow[2] = {NEG_INF, NEG_INF}, lrow[2] = {0.f, 0.f};
+
+  for (int t = 0; t < ntiles; ++t) {
+    if (t + 1 < ntiles) load_kv(t + 1);
+    bbasync::commit();
+    bbasync::wait<1>();  // tile t (and the Q tile)
+    // the copies are generic-proxy writes; wgmma reads by the async proxy
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    const unsigned char* kt = Ks + (t & 1) * KVBYTES;
+    const unsigned char* vt = Vs + (t & 1) * KVBYTES;
+
+    // S = Q K^T: 16 dims a step, within 64-dim column blocks
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KQ; ++kk) {
+      const int col = (kk & 3) * 32;  // bytes into the 128-byte rows
+      wgmma_ss_n64(s, smem_desc(Qs + (kk >> 2) * TC_BQ * 128 + col, 16, 1024),
+                   smem_desc(kt + (kk >> 2) * TC_BK * 128 + col, 16, 1024),
+                   kk == 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(s);
+
+    // online softmax in the log2 domain; the mask only on edge tiles
+    const int k0 = t * TC_BK;
+    const bool edge = k0 + TC_BK > kfull;
+    float corr[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < NS / 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (edge && k0 + 8 * j + 2 * tq + e >= lim[i])
+            s[4 * j + 2 * i + e] = NEG_INF;
+          mx = fmaxf(mx, s[4 * j + 2 * i + e]);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
+      // running max of the raw scores (scale > 0 keeps the order)
+      const float m_new = fmaxf(mrow[i], mx);
+      // a row with nothing visible yet keeps m = -inf: exp2 against 0
+      // then gives exact zeros, never inf - inf
+      const float base = m_new == NEG_INF ? 0.f : m_new * scale2;
+      corr[i] = fast_exp2(fmaf(mrow[i], scale2, -base));
+      mrow[i] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < NS / 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[4 * j + 2 * i + e];
+          x = fast_exp2(fmaf(x, scale2, -base));
+          sum += x;
+        }
+      lrow[i] = lrow[i] * corr[i] + sum;  // the lane's share; quad-summed
+    }
+#pragma unroll
+    for (int n = 0; n < NO / 4; ++n) {
+      oacc[4 * n] *= corr[0];
+      oacc[4 * n + 1] *= corr[0];
+      oacc[4 * n + 2] *= corr[1];
+      oacc[4 * n + 3] *= corr[1];
+    }
+
+    // O += P V: P's A fragments are the S accumulators of 16 keys, as two
+    // bf16 terms (hi + lo); V (keys x dims) is B, MN-major
+    unsigned a[KP][4], a_lo[KP][4];
+#pragma unroll
+    for (int kk = 0; kk < KP; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        split_bf16(s[8 * kk + 4 * (r >> 1) + 2 * (r & 1)],
+                   s[8 * kk + 4 * (r >> 1) + 2 * (r & 1) + 1], a[kk][r],
+                   a_lo[kk][r]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KP; ++kk) {
+      const uint64_t desc = smem_desc(vt + kk * 16 * 128, TC_BK * 128, 1024);
+      wgmma_pv<HD>(oacc, a[kk], desc);
+      wgmma_pv<HD>(oacc, a_lo[kk], desc);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(oacc);
+    pin(a);
+    pin(a_lo);
+    __syncthreads();  // stage t & 1 is refilled at iteration t + 1
+  }
+  bbasync::wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float l = lrow[i];
+    l += __shfl_xor_sync(FULL, l, 1);
+    l += __shfl_xor_sync(FULL, l, 2);
+    const float inv = l > 0.f ? 1.f / l : 0.f;
+    const int qi = qrow + 8 * i;
+    if (qi < TQ) {
+      bf16* orow = o + (((size_t)b * TQ + qi) * H + h) * HD + 2 * tq;
+#pragma unroll
+      for (int n = 0; n < NO / 4; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n) =
+            __floats2bfloat162_rn(oacc[4 * n + 2 * i] * inv,
+                                  oacc[4 * n + 2 * i + 1] * inv);
+    }
+  }
+}
+
+template <int HD>
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                const int* starts, const int* lens, int B, int TQ, int S,
+                int H, int HKV, float scale, int causal, cudaStream_t stream) {
+  const size_t smem = tc_smem_bytes<HD>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bf16_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((TQ + TC_BQ - 1) / TC_BQ, H, B);
+  flash_bf16_kernel<HD><<<grid, TC_NT, smem, stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+      (const __nv_bfloat16*)v, (__nv_bfloat16*)o, starts, lens, TQ, S, H, HKV,
+      scale, causal);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns 0, a cudaError_t code, or -1
-// for a dtype/head_dim this library was not compiled for.
+// dtype: 0 = float32 (flash_f32_kernel), 1 = bfloat16 (flash_bf16_kernel,
+// which needs q, k and v 16-byte aligned). Returns 0, a cudaError_t code,
+// or -1 for a dtype/head_dim this library was not compiled for.
 extern "C" int bb_flash_attention(const void* q, const void* k,
                                   const void* v, void* o, const int* starts,
                                   const int* lens, int B, int TQ, int S,
@@ -195,16 +584,16 @@ extern "C" int bb_flash_attention(const void* q, const void* k,
                                   int causal, int dtype, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0 && HD == 64)
-    return launch<float, 64>(q, k, v, o, starts, lens, B, TQ, S, H, HKV,
+    return launch_f32<64>(q, k, v, o, starts, lens, B, TQ, S, H, HKV,
                              scale, causal, st);
   if (dtype == 0 && HD == 128)
-    return launch<float, 128>(q, k, v, o, starts, lens, B, TQ, S, H, HKV,
+    return launch_f32<128>(q, k, v, o, starts, lens, B, TQ, S, H, HKV,
                               scale, causal, st);
   if (dtype == 1 && HD == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, o, starts, lens, B, TQ, S, H,
-                                     HKV, scale, causal, st);
+    return launch_bf16<64>(q, k, v, o, starts, lens, B, TQ, S, H, HKV,
+                             scale, causal, st);
   if (dtype == 1 && HD == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, o, starts, lens, B, TQ, S, H,
-                                      HKV, scale, causal, st);
+    return launch_bf16<128>(q, k, v, o, starts, lens, B, TQ, S, H, HKV,
+                              scale, causal, st);
   return -1;
 }

@@ -1,13 +1,13 @@
-// Paged decode, int4 paged decode and paged chunk attention for Hopper
-// (sm_90a): attention read straight off the paged KV arena, the page table
-// steering each key read, online softmax in f32 (body and K/V readers in
-// paged_common.cuh).
+// Int4 paged decode and paged chunk attention for Hopper (sm_90a):
+// attention read straight off the paged KV arena, the page table steering
+// each key read, online softmax in f32 (body and K/V readers in
+// paged_common.cuh). The bf16/f32 decode kernel has its own split-over-keys
+// design in paged_decode.cu.
 //
 // Replaces, in bloombee_tpu/ops/pallas/paged_attention.py:
-// - paged_decode_attention (body `_kernel` over `_online_softmax_body`):
-//   q [B,H,hd], one decode token per sequence at position lens[b]-1; keys
-//   visible at positions < lens[b], and >= lens[b]-window when window > 0.
-// - paged_decode_attention_int4 (body `_int4_kernel`): the same over an
+// - paged_decode_attention_int4 (body `_int4_kernel`): q [B,H,hd], one
+//   decode token per sequence at position lens[b]-1; keys visible at
+//   positions < lens[b], and >= lens[b]-window when window > 0; over an
 //   int4 arena, codes [S_tot,Hkv,hd/2] u8 + scale/zero [S_tot,Hkv,hd/32]
 //   f16, dequantized in registers as each row is read. The Pallas kernel's
 //   evens-then-odds permutation of q (a lane-layout workaround) is not
@@ -21,11 +21,10 @@
 // h / g (g = H / Hkv); keys exist only in the NP pages of the table.
 //
 // One CTA per (KV head, query token, sequence). Bound on H100: bytes.
-// Decode reads each visible K/V row once per (sequence, KV head) and does
-// 4*g*hd flops per row; the arena read dominates (int4: 80 B per row and
-// head at hd 128 against 256 B in bf16). The chunk variant re-reads the
-// context once per query token (from L2 after the first), which a later
-// query-tiled kernel removes.
+// int4 decode reads each visible K/V row once per (sequence, KV head), 80 B
+// per row and head at hd 128 against 256 B in bf16, for 4*g*hd flops. The
+// chunk variant re-reads the context once per query token (from L2 after
+// the first), which a later query-tiled kernel removes.
 
 #include "paged_common.cuh"
 
@@ -107,20 +106,6 @@ struct Int4Launch {
 // dtype (of q and out): 0 = float32, 1 = bfloat16. Each returns 0, a
 // cudaError_t code, or -1 for a dtype / head_dim / group size this library
 // was not compiled for.
-extern "C" int bb_paged_decode_attention(const void* q, const void* k_slab,
-                                         const void* v_slab,
-                                         const int* page_table,
-                                         const int* lens, void* out, int B,
-                                         int H, int HKV, int HD, int NP,
-                                         int page_size, int window,
-                                         float scale, int dtype,
-                                         void* stream) {
-  return dispatch<DenseLaunch>(
-      dtype, HD, H / HKV, q, k_slab, v_slab, page_table, lens,
-      (const unsigned char*)nullptr, out, B, 1, HKV, NP, page_size, window,
-      1, scale, (cudaStream_t)stream);
-}
-
 extern "C" int bb_paged_chunk_attention(
     const void* q, const void* k_slab, const void* v_slab,
     const int* page_table, const int* lens, const unsigned char* tree,

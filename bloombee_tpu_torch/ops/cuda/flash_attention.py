@@ -5,7 +5,9 @@ Replaces bloombee_tpu/ops/pallas/flash_attention.py::flash_attention. Row
 b's query i sits at absolute position starts[b] + i; keys occupy positions
 0..S-1 and row b sees those below lens[b] (and, when causal, at or below its
 own position). The softmax and the P.V sum are f32 (as in the Pallas
-kernel); a row with no visible key outputs zeros.
+kernel); a row with no visible key outputs zeros. bf16 inputs run on the
+tensor cores (P enters the P.V product as two bf16 terms, hi + lo); f32
+inputs on the CUDA cores.
 
 `flash_attention` runs the plain version for tensors on the CPU and the
 kernel for CUDA tensors; it never falls back from one to the other.
@@ -111,6 +113,9 @@ def _check(q, k, v, starts, lens):
                     ("lens", lens)):
         if not x.is_contiguous():
             raise ValueError(f"{KERNEL}: {name} must be contiguous")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{KERNEL}: {name} must be 16-byte aligned")
 
 
 def flash_attention(

@@ -1,12 +1,14 @@
-"""The paged attention kernels for Hopper (`csrc/paged_attention.cu`,
-`csrc/paged_ragged.cu`, sharing `csrc/paged_common.cuh`) and their plain
-PyTorch versions.
+"""The paged attention kernels for Hopper (`csrc/paged_decode.cu`,
+`csrc/paged_attention.cu`, `csrc/paged_ragged.cu`; the last two share
+`csrc/paged_common.cuh`) and their plain PyTorch versions.
 
 Replaces, in bloombee_tpu/ops/pallas/paged_attention.py:
 
 - `paged_decode_attention`: T=1 attention straight off the paged arena. The
   decode query sits at position lens[b]-1 and sees keys at positions
-  < lens[b] (and >= lens[b]-window when window > 0).
+  < lens[b] (and >= lens[b]-window when window > 0). Its kernel splits each
+  sequence's keys into page-aligned chunks (`decode_split`, planned on the
+  host from the table's shape) and merges them in the same launch.
 - `paged_decode_attention_int4`: the same over an int4-quantized arena
   (`kv.quant.QuantSlab`), dequantized as it is read.
 - `paged_chunk_attention`: T>1 steps (short follow-up chunks, tree verify).
@@ -38,6 +40,7 @@ from bloombee_tpu_torch.ops.attention import NEG_INF, repeat_kv
 from bloombee_tpu_torch.ops.cuda import build
 
 SOURCE = "paged_attention"
+DECODE_SOURCE = "paged_decode"
 RAGGED_SOURCE = "paged_ragged"
 DECODE = "paged_decode_attention"
 INT4 = "paged_decode_attention_int4"
@@ -47,6 +50,11 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
 _GROUPS = (1, 2, 4, 8)
 _libs: dict = {}
+# CTAs the split decode kernel aims for: two per SM of an H100's 132
+SPLIT_CTAS = 264
+# per (device, stream): the split decode kernel's int32 counters, zeroed
+# once when allocated; every launch leaves them at zero again
+_counters: dict = {}
 
 
 def _gather(slab, page_table, page_size):
@@ -211,12 +219,16 @@ def _library(source: str):
         return lib
     lib = build.library(source)
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    if source == SOURCE:
+    if source == DECODE_SOURCE:
         lib.bb_paged_decode_attention.argtypes = [
             vp, vp, vp, vp, vp, vp,  # q, k_slab, v_slab, page_table, lens, out
+            vp, vp,  # part, counter
             i32, i32, i32, i32, i32, i32, i32,  # B, H, Hkv, hd, NP, ps, window
+            i32, i32,  # chunk, chunks
             f32, i32, vp,  # scale, dtype, stream
         ]
+        fns = (lib.bb_paged_decode_attention,)
+    elif source == SOURCE:
         lib.bb_paged_chunk_attention.argtypes = [
             vp, vp, vp, vp, vp, vp, vp,  # q, k, v, page_table, lens, tree, out
             i32, i32, i32, i32, i32, i32, i32, i32, i32,  # B T H Hkv hd NP
@@ -230,7 +242,7 @@ def _library(source: str):
             i32, i32, i32, i32, i32, i32, i32,  # B, H, Hkv, hd, NP, ps, window
             f32, i32, vp,  # scale, dtype, stream
         ]
-        fns = (lib.bb_paged_decode_attention, lib.bb_paged_chunk_attention,
+        fns = (lib.bb_paged_chunk_attention,
                lib.bb_paged_decode_attention_int4)
     else:
         lib.bb_paged_ragged_attention.argtypes = [
@@ -314,6 +326,43 @@ def _stream(q) -> int:
     return torch.cuda.current_stream(q.device).cuda_stream
 
 
+def decode_split(
+    num_pages: int, page_size: int, b: int, hkv: int
+) -> tuple[int, int]:
+    """The split decode kernel's plan: (chunk_keys, chunks). Each sequence's
+    key range [0, num_pages * page_size) is cut into `chunks` chunks of
+    `chunk_keys` keys, a whole number of pages each (the last may run past
+    the range: the kernel clips it), enough that b * hkv * chunks CTAs fill
+    SPLIT_CTAS, and at most one chunk per page. A function of the shapes
+    alone: the host never reads lens from the device."""
+    num_pages = max(num_pages, 1)
+    want = min(max(1, -(-SPLIT_CTAS // (b * hkv))), num_pages)
+    pages = -(-num_pages // want)
+    return pages * page_size, -(-num_pages // pages)
+
+
+def decode_buffers(q, hkv, num_pages, page_size, stream):
+    """(chunk_keys, chunks, part, counter) for one split decode launch of
+    grid (chunks, hkv, B): `part` (f32, one launch's chunk states, None
+    when chunks == 1) holds B*hkv*chunks*g*(hd+2) floats, allocated per
+    call; `counter` (int32, >= B*hkv, zero) is kept per (device, stream)
+    and grows when a launch needs more."""
+    b, h, hd = q.shape
+    chunk, chunks = decode_split(num_pages, page_size, b, hkv)
+    part = None
+    if chunks > 1:
+        part = torch.empty(
+            (b * hkv * chunks * (h // hkv) * (hd + 2),),
+            dtype=torch.float32, device=q.device,
+        )
+    key = (q.device, stream)
+    counter = _counters.get(key)
+    if counter is None or counter.numel() < b * hkv:
+        counter = torch.zeros((b * hkv,), dtype=torch.int32, device=q.device)
+        _counters[key] = counter
+    return chunk, chunks, part, counter
+
+
 def paged_decode_attention(
     q: torch.Tensor,  # [B, H, hd]
     k_slab: torch.Tensor,  # [S_tot, Hkv, hd]
@@ -329,14 +378,23 @@ def paged_decode_attention(
             q, k_slab, v_slab, page_table, lens, page_size, scale, window
         )
     _check(DECODE, q, k_slab, v_slab, page_table, lens, page_size)
-    lib = _library(SOURCE)
+    for name, x in (("k_slab", k_slab), ("v_slab", v_slab)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{DECODE}: {name} must be 16-byte aligned")
+    lib = _library(DECODE_SOURCE)
     b, h, hd = q.shape
+    stream = _stream(q)
+    chunk, chunks, part, counter = decode_buffers(
+        q, k_slab.shape[1], page_table.shape[1], page_size, stream
+    )
     out = torch.empty_like(q)
     err = lib.bb_paged_decode_attention(
         q.data_ptr(), k_slab.data_ptr(), v_slab.data_ptr(),
         page_table.data_ptr(), lens.data_ptr(), out.data_ptr(),
+        None if part is None else part.data_ptr(), counter.data_ptr(),
         b, h, k_slab.shape[1], hd, page_table.shape[1], page_size,
-        int(window), _scale(scale, hd), _DTYPES[q.dtype], _stream(q),
+        int(window), chunk, chunks, _scale(scale, hd), _DTYPES[q.dtype],
+        stream,
     )
     build.check(err, DECODE)
     build.LAUNCHES[DECODE] += 1

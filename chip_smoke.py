@@ -9,16 +9,20 @@
 
 Phases:
 1. Build the five CUDA kernels from `bloombee_tpu_torch/ops/cuda/csrc/`
-   with nvcc for sm_90a (the three sources compile in parallel).
+   with nvcc for sm_90a (the four sources compile in parallel).
 2. Hold each kernel against its plain PyTorch version on the card at
    Llama-3-8B head geometry (H=32, Hkv=8, hd=128, page_size 16): f32 max abs
    error <= 1e-4; bf16 max abs error <= 2e-2 on unit-scale inputs and, for
    every element, <= 1e-2 x |plain| + 1e-3; shapes include a
    sliding window, a lens=0 row, a tree-mode chunk, ragged causal and tree
    mixes with padding rows, and int4 decode, plus small cases of every
-   other compiled geometry (hd 64; GQA groups 1, 2, 8). Times each kernel,
-   its plain version and (flash) the library call computing the same
-   function, with CUDA events after warmup.
+   other compiled geometry (hd 64; GQA groups 1, 2, 8), and the edge cases
+   of the flash and split decode kernels (`phase_kernels_edges`). Times
+   each kernel, its plain version and (flash) the library call computing
+   the same function, with CUDA events after warmup, launches queued
+   behind a device sleep so the time is the device's (`cuda_ms`); also
+   host-paced, decode with a cold L2, flash at both prefill-chunk shapes
+   and in f32.
 3. The executor's path in f32 (TF32 off) at full Llama-3-8B width, 4
    layers, random weights from a seeded generator: a 1000-token prefill of
    batch 2, 8 greedy decodes and a 24-token follow-up must match
@@ -38,11 +42,13 @@ Phases:
      and one 8-token tree-verify step (-> paged chunk);
    - ragged: a ragged step of the 4 sessions' decode rows + a fifth
      session's 32-token chunk, and a tree step of 4 x 8-node trees (->
-     ragged), each timed beside the same work dispatched separately;
+     ragged), each timed beside the same work dispatched separately
+     (counted apart, as `ragged_yardstick`);
    - int4: an int4 arena, 4 sessions x 1000-token prefill (flash over the
      dequantized pages) and 32 `decode_group` steps (-> int4 decode),
      timed beside the bf16 arena's decode step.
-   Every kernel must show launches on its path.
+   Every kernel must show launches on its path, and the bf16 decode step
+   exactly one decode launch per layer.
 
 Prints the card's name and power limit, per-phase results, a
 `{"kernels": [...]}` line, and as its last line
@@ -67,7 +73,8 @@ REPO = pathlib.Path(__file__).resolve().parent
 H, HKV, HD, PS = 32, 8, 128, 16
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense, FLOP/s
-SOURCES = ("flash_attention", "paged_attention", "paged_ragged")
+SOURCES = ("flash_attention", "paged_attention", "paged_decode",
+           "paged_ragged")
 REPLACES = {
     "flash_attention": "bloombee_tpu/ops/pallas/flash_attention.py:124",
     "paged_decode_attention": "bloombee_tpu/ops/pallas/paged_attention.py:545",
@@ -78,7 +85,7 @@ REPLACES = {
 }
 SOURCE_OF = {
     "flash_attention": "flash_attention",
-    "paged_decode_attention": "paged_attention",
+    "paged_decode_attention": "paged_decode",
     "paged_chunk_attention": "paged_attention",
     "paged_ragged_attention": "paged_ragged",
     "paged_decode_attention_int4": "paged_attention",
@@ -98,20 +105,57 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, warmup=3, iters=20) -> float:
+def cuda_ms(fn, warmup=3, iters=20, host_paced=False, reps=3) -> float:
+    """Device ms per call of fn: the median over `reps` runs of the mean
+    of `iters` back-to-back calls (CUDA events). Before each run the
+    device sleeps ~25 ms so that the host queues every call before the
+    first runs: the time is the device's, not the host's Python and launch
+    overhead. `host_paced` skips the sleep (PR 1 and PR 2's method, which
+    reads a kernel shorter than its wrapper's host time as the host's
+    pace)."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
+    runs = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        if not host_paced:
+            torch.cuda._sleep(50_000_000)  # cycles: ~25 ms at 2 GHz
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        runs.append(start.elapsed_time(end) / iters)
+    return sorted(runs)[reps // 2]
+
+
+def cuda_ms_cold(fn, iters=60) -> float:
+    """Device ms per call of fn with a cold L2: a 256 MiB buffer (over the
+    H100's 50 MB L2) is overwritten before each call, and each call is
+    timed alone with CUDA events (queued behind a device sleep, as in
+    cuda_ms); the mean of `iters` calls."""
+    import torch
+
+    flush = torch.empty((64 << 20,), dtype=torch.float32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    events = [
+        (torch.cuda.Event(enable_timing=True),
+         torch.cuda.Event(enable_timing=True))
+        for _ in range(iters)
+    ]
+    torch.cuda._sleep(50_000_000)
+    for start, end in events:
+        flush.zero_()
+        start.record()
         fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+        end.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in events) / iters
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
@@ -134,9 +178,62 @@ def phase_build():
         f"{time.perf_counter() - t0:.1f} s (cached: "
         f"{[s for s in SOURCES if s not in logs]})")
     for name, log in logs.items():
+        for kernel, report in ptxas_report(log):
+            say(f"[build] {name}: {kernel}: {report}")
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "Performance Loss" in line:  # e.g. serialized wgmma
                 say(f"[build] {name}: {line.strip()}")
+    for name in SOURCES:
+        say(f"[build] {name}: tensor-core instructions in the SASS "
+            f"(cuobjdump): {tensor_core_ops(build, name)}")
+
+
+def tensor_core_ops(build, name) -> dict[str, int] | str:
+    """Counts of the tensor-core SASS opcodes (HGMMA: wgmma; HMMA:
+    mma.sync) in a built library, from `cuobjdump -sass`."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not pathlib.Path(tool).exists():
+        return "cuobjdump not found"
+    sass = subprocess.run(
+        [tool, "-sass", str(build._output(name))], capture_output=True,
+        text=True, timeout=120,
+    ).stdout
+    counts: dict[str, int] = {}
+    for op in re.findall(r"\b(HGMMA|HMMA)\.", sass):
+        counts[op] = counts.get(op, 0) + 1
+    return counts
+
+
+def ptxas_report(log: str) -> list[tuple[str, str]]:
+    """(kernel, "N registers, spills, smem") per entry function of an
+    `nvcc -Xptxas -v` log, kernel names demangled when a demangler is on
+    the PATH."""
+    import re
+    import shutil
+
+    rows, kernel, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            kernel = m.group(1)
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and kernel:
+            used = line.split(":", 1)[1].strip()
+            rows.append((kernel, f"{used}; {spill}"))
+            kernel = None
+    tool = shutil.which("cu++filt") or shutil.which("c++filt")
+    if tool and rows:
+        out = subprocess.run([tool], input="\n".join(k for k, _ in rows),
+                             capture_output=True, text=True)
+        names = out.stdout.splitlines()
+        if len(names) == len(rows):
+            rows = [(n.replace("(anonymous namespace)::", "").split("(")[0],
+                     r) for n, (_, r) in zip(names, rows)]
+    return rows
 
 
 # ------------------------------------------------------------- phase 2
@@ -292,57 +389,18 @@ def phase_kernels() -> list[dict]:
                   pa.paged_ragged_attention_reference(*args))
 
         phase_kernels_ragged_int4(gen, dtype, check)
+        phase_kernels_edges(gen, dtype, check)
 
     # times at the serving run's bf16 shapes (phase 4): 4 sessions
     dt = torch.bfloat16
-    rows = []
-
-    q = _unit(gen, (4, 512, H, HD), dt)
-    k = _unit(gen, (4, 1024, HKV, HD), dt)
-    v = _unit(gen, (4, 1024, HKV, HD), dt)
-    starts = torch.full((4,), 512, **i32)
-    lens = torch.full((4,), 1000, **i32)
     scale = HD**-0.5
-    ms = cuda_ms(lambda: fa.flash_attention(q, k, v, True, scale, starts, lens))
-    plain = cuda_ms(
-        lambda: fa.flash_attention_reference(q, k, v, True, scale, starts, lens),
-        iters=5,
-    )
-    from bloombee_tpu_torch.ops.attention import repeat_kv
-
-    kr, vr = repeat_kv(k, H // HKV), repeat_kv(v, H // HKV)
-    pos_q = starts[:, None] + torch.arange(512, device="cuda")
-    kpos = torch.arange(1024, device="cuda")
-    mask = (kpos[None, None] <= pos_q[:, :, None]) & (
-        kpos[None, None] < lens[:, None, None]
-    )
-    qt_, kt_, vt_ = (x.transpose(1, 2) for x in (q, kr, vr))
-    m4 = mask[:, None]
-    library = cuda_ms(
-        lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt_, kt_, vt_, attn_mask=m4, scale=scale
-        )
-    )
-    vis = mask.sum().item() * H  # visible (query, key) pairs, all heads
-    b_ms, by = bound(
-        nbytes(q, k[:, :1000], v[:, :1000], q, starts, lens), 4 * vis * HD, dt
-    )
-    rows.append(("flash_attention", ms, plain, b_ms, by, library))
-
+    extra: dict[str, dict] = {}  # per kernel: times beyond the row's own
+    flash_row, extra["flash_attention"] = time_flash(gen)
+    decode_row, extra["paged_decode_attention"] = time_decode(gen)
+    rows = [flash_row, decode_row]
     phys = 1024
     ks, vs = _arena(gen, dt, phys)
     pt = _page_table(gen, 4, 64, phys)
-    lens = torch.full((4,), 1001, **i32)
-    qd = _unit(gen, (4, H, HD), dt)
-    args = (qd, ks, vs, pt, lens, PS, scale, 0)
-    ms = cuda_ms(lambda: pa.paged_decode_attention(*args))
-    plain = cuda_ms(lambda: pa.paged_decode_attention_reference(*args))
-    kv_rows = 4 * 1001
-    b_ms, by = bound(
-        2 * kv_rows * HKV * HD * 2 + nbytes(qd, qd, pt, lens),
-        4 * kv_rows * H * HD, dt,
-    )
-    rows.append(("paged_decode_attention", ms, plain, b_ms, by, None))
 
     qc = _unit(gen, (4, 32, H, HD), dt)
     lens = torch.full((4,), 1032, **i32)
@@ -350,20 +408,23 @@ def phase_kernels() -> list[dict]:
             scale, 0, 24)
     ms = cuda_ms(lambda: pa.paged_chunk_attention(*args))
     plain = cuda_ms(lambda: pa.paged_chunk_attention_reference(*args))
+    extra["paged_chunk_attention"] = {"host_paced_ms": cuda_ms(
+        lambda: pa.paged_chunk_attention(*args), host_paced=True
+    )}
     vis = 4 * sum(1032 - 24 + i + 1 for i in range(24))  # per head
     b_ms, by = bound(
         2 * 4 * 1032 * HKV * HD * 2 + nbytes(qc, qc, lens) + 4 * 65 * 4,
         4 * vis * H * HD, dt,
     )
     rows.append(("paged_chunk_attention", ms, plain, b_ms, by, None))
-    rows += time_ragged_int4(gen)
+    rows += time_ragged_int4(gen, extra)
 
     out = []
     for name, ms, plain, b_ms, by, library in rows:
         say(f"[kernels] {name} bf16 main-path shape: {ms:.4f} ms (plain "
             f"{plain:.4f} ms, library "
             f"{'n/a' if library is None else f'{library:.4f} ms'}, "
-            f"bound {b_ms:.4f} ms by {by})")
+            f"bound {b_ms:.4f} ms by {by}) {extra.get(name, {})}")
         out.append({
             "name": name,
             "route": "cuda",
@@ -377,8 +438,182 @@ def phase_kernels() -> list[dict]:
             "bound_ms": b_ms,
             "bound_by": by,
             "library_ms": library,
+            **extra.get(name, {}),
         })
     return out
+
+
+def sdpa_ms(q, k, v, starts, lens, scale):
+    """(ms, mask): the time of one scaled_dot_product_attention call
+    computing the flash kernel's causal function (GQA pre-expanded, the
+    mask as a bool tensor), the library yardstick used nowhere in the
+    port; and that mask."""
+    import torch
+
+    from bloombee_tpu_torch.ops.attention import repeat_kv
+
+    t, s = q.shape[1], k.shape[1]
+    kr, vr = repeat_kv(k, H // HKV), repeat_kv(v, H // HKV)
+    pos_q = starts[:, None] + torch.arange(t, device="cuda")
+    kpos = torch.arange(s, device="cuda")
+    mask = (kpos[None, None] <= pos_q[:, :, None]) & (
+        kpos[None, None] < lens[:, None, None]
+    )
+    qt_, kt_, vt_ = (x.transpose(1, 2) for x in (q, kr, vr))
+    m4 = mask[:, None]
+    return cuda_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt_, kt_, vt_, attn_mask=m4, scale=scale
+        )
+    ), mask
+
+
+def time_flash(gen) -> tuple[tuple, dict]:
+    """The flash kernel at the serving prefill's two chunk shapes: the
+    second (q [4,512,32,128] over a 1024-token context, starts 512, lens
+    1000: the row's own numbers, comparable with PR 1 and 2) and the first
+    (starts 0, T 512 over S 512), each beside its SDPA call; and the f32
+    kernel at the second shape."""
+    import torch
+
+    from bloombee_tpu_torch.ops.cuda import flash_attention as fa
+
+    dt = torch.bfloat16
+    i32 = dict(dtype=torch.int32, device="cuda")
+    scale = HD**-0.5
+    extra = {}
+    for label, s, start, length in (("second", 1024, 512, 1000),
+                                    ("first", 512, 0, 512)):
+        q = _unit(gen, (4, 512, H, HD), dt)
+        k = _unit(gen, (4, s, HKV, HD), dt)
+        v = _unit(gen, (4, s, HKV, HD), dt)
+        starts = torch.full((4,), start, **i32)
+        lens = torch.full((4,), length, **i32)
+        args = (q, k, v, True, scale, starts, lens)
+        ms = cuda_ms(lambda: fa.flash_attention(*args))
+        library, mask = sdpa_ms(q, k, v, starts, lens, scale)
+        vis = mask.sum().item() * H  # visible (query, key) pairs, all heads
+        b_ms, by = bound(
+            nbytes(q, k[:, :length], v[:, :length], q, starts, lens),
+            4 * vis * HD, dt,
+        )
+        if label == "second":
+            plain = cuda_ms(lambda: fa.flash_attention_reference(*args),
+                            iters=5)
+            row = ("flash_attention", ms, plain, b_ms, by, library)
+            f32 = tuple(x.float() for x in (q, k, v))
+            extra["f32_ms"] = cuda_ms(
+                lambda: fa.flash_attention(*f32, True, scale, starts, lens)
+            )
+            extra["host_paced_ms"] = cuda_ms(
+                lambda: fa.flash_attention(*args), host_paced=True
+            )
+        else:
+            extra.update(first_chunk_ms=ms, first_chunk_library_ms=library,
+                         first_chunk_bound_ms=b_ms)
+    return row, extra
+
+
+def time_decode(gen) -> tuple[tuple, dict]:
+    """The decode kernel at the serving decode shape (q [4,32,128] over
+    4 x 1001-token contexts in a 1024-page arena): warm L2 (back-to-back
+    launches over the same pages: the row's own time, comparable with PR 1
+    and 2), cold L2 (as a decode step finds each layer's slab), and
+    host-paced (PR 1 and 2's method)."""
+    import torch
+
+    from bloombee_tpu_torch.ops.cuda import paged_attention as pa
+
+    dt = torch.bfloat16
+    i32 = dict(dtype=torch.int32, device="cuda")
+    ks, vs = _arena(gen, dt, 1024)
+    pt = _page_table(gen, 4, 64, 1024)
+    lens = torch.full((4,), 1001, **i32)
+    qd = _unit(gen, (4, H, HD), dt)
+    args = (qd, ks, vs, pt, lens, PS, HD**-0.5, 0)
+    ms = cuda_ms(lambda: pa.paged_decode_attention(*args))
+    plain = cuda_ms(lambda: pa.paged_decode_attention_reference(*args))
+    kv_rows = 4 * 1001
+    b_ms, by = bound(
+        2 * kv_rows * HKV * HD * 2 + nbytes(qd, qd, pt, lens),
+        4 * kv_rows * H * HD, dt,
+    )
+    chunk, chunks = pa.decode_split(64, PS, 4, HKV)
+    extra = {
+        "cold_ms": cuda_ms_cold(lambda: pa.paged_decode_attention(*args)),
+        "host_paced_ms": cuda_ms(lambda: pa.paged_decode_attention(*args),
+                                 host_paced=True),
+        "split": f"{chunks} chunks of {chunk} keys, "
+                 f"{4 * HKV * chunks} CTAs",
+    }
+    return ("paged_decode_attention", ms, plain, b_ms, by, None), extra
+
+
+def phase_kernels_edges(gen, dtype, check):
+    """Phase 2 edge cases of the flash kernel and the split decode kernel.
+
+    Flash: T=100 and S=150 (not multiples of the 64-query and 64-key
+    tiles), starts 37 and 13 (off a tile edge), lens 137 (inside the last
+    key tile), a lens=0 row (exact zeros), causal and not, at hd 64 with
+    GQA groups 1 and 8 and at Llama-3-8B heads.
+    Decode (Llama-3-8B heads): lens 1, 15, 16, 17, one chunk + 1, 0 (exact
+    zeros), the table's full capacity and 1000, without and with a window
+    that starts mid-chunk, each launched twice in a row (the second finds
+    the counters the first reset; both must agree bit for bit); and B=1
+    over 8000 tokens, so that 32 chunks merge."""
+    import torch
+
+    from bloombee_tpu_torch.ops.cuda import flash_attention as fa
+    from bloombee_tpu_torch.ops.cuda import paged_attention as pa
+
+    i32 = dict(dtype=torch.int32, device="cuda")
+
+    def zeros(name, case, x):
+        if torch.count_nonzero(x).item():
+            raise AssertionError(f"{name} {case}: lens=0 row not zeros")
+
+    for hd, h, hkv in ((64, 8, 8), (64, 16, 2), (128, H, HKV)):
+        q = _unit(gen, (3, 100, h, hd), dtype)
+        k = _unit(gen, (3, 150, hkv, hd), dtype)
+        v = _unit(gen, (3, 150, hkv, hd), dtype)
+        st = torch.tensor([37, 0, 13], **i32)
+        ln = torch.tensor([137, 0, 150], **i32)
+        for causal in (True, False):
+            case = f"edges hd={hd} H={h} Hkv={hkv} causal={causal}"
+            args = (q, k, v, causal, None, st, ln)
+            got = fa.flash_attention(*args)
+            check("flash_attention", dtype, case, got,
+                  fa.flash_attention_reference(*args))
+            zeros("flash_attention", case, got[1])
+
+    ks, vs = _arena(gen, dtype, 1024)
+    pt = _page_table(gen, 8, 64, 1024)
+    chunk, chunks = pa.decode_split(64, PS, 8, HKV)
+    lens = torch.tensor([1, 15, 16, 17, chunk + 1, 0, 64 * PS, 1000], **i32)
+    qd = _unit(gen, (8, H, HD), dtype)
+    mid = 1000 - (2 * chunk + chunk // 2)  # row 7's window starts mid-chunk
+    for window in (0, mid):
+        case = (f"lens {lens.tolist()} ({chunks} chunks of {chunk}) "
+                f"window={window}")
+        args = (qd, ks, vs, pt, lens, PS, None, window)
+        first = pa.paged_decode_attention(*args)
+        second = pa.paged_decode_attention(*args)
+        want = pa.paged_decode_attention_reference(*args)
+        check("paged_decode_attention", dtype, case, first, want)
+        check("paged_decode_attention", dtype, case + " 2nd launch", second,
+              want)
+        if not torch.equal(first, second):
+            raise AssertionError(f"decode {case}: launches disagree")
+        zeros("paged_decode_attention", case, first[5])
+    ks, vs = _arena(gen, dtype, 512)
+    pt = _page_table(gen, 1, 500, 512)
+    chunk, chunks = pa.decode_split(500, PS, 1, HKV)
+    args = (_unit(gen, (1, H, HD), dtype), ks, vs, pt,
+            torch.tensor([8000], **i32), PS, None, 0)
+    check("paged_decode_attention", dtype,
+          f"B=1 lens=8000 ({chunks} chunks of {chunk})",
+          pa.paged_decode_attention(*args),
+          pa.paged_decode_attention_reference(*args))
 
 
 def ragged_mix(gen, dtype, window_case: bool):
@@ -448,11 +683,11 @@ def phase_kernels_ragged_int4(gen, dtype, check):
               pa.paged_decode_attention_int4_reference(*args))
 
 
-def time_ragged_int4(gen) -> list[tuple]:
+def time_ragged_int4(gen, extra) -> list[tuple]:
     """bf16 times of the ragged and int4 kernels at the serving run's
     shapes (phase 4): the ragged step of 4 decode rows at ~1.05k tokens +
     a fresh session's 32-token chunk (R bucket 64), and int4 decode of 4
-    sessions at 1001 tokens."""
+    sessions at 1001 tokens; each one's host-paced time into `extra`."""
     import torch
 
     from bloombee_tpu_torch.kv.quant import quantize
@@ -474,6 +709,9 @@ def time_ragged_int4(gen) -> list[tuple]:
     args = (q, ks, vs, pt, lens, q_seq, q_pos, PS, scale, 0)
     ms = cuda_ms(lambda: pa.paged_ragged_attention(*args))
     plain = cuda_ms(lambda: pa.paged_ragged_attention_reference(*args))
+    extra["paged_ragged_attention"] = {"host_paced_ms": cuda_ms(
+        lambda: pa.paged_ragged_attention(*args), host_paced=True
+    )}
     kv_rows = int(lens[:4].sum()) + 32  # each member's visible rows, once
     pairs = int(lens[:4].sum()) + 32 * 33 // 2  # visible (query, key)
     b_ms, by = bound(
@@ -490,6 +728,9 @@ def time_ragged_int4(gen) -> list[tuple]:
     args = (qd, kq, vq, pt, lens, PS, scale, 0)
     ms = cuda_ms(lambda: pa.paged_decode_attention_int4(*args))
     plain = cuda_ms(lambda: pa.paged_decode_attention_int4_reference(*args))
+    extra["paged_decode_attention_int4"] = {"host_paced_ms": cuda_ms(
+        lambda: pa.paged_decode_attention_int4(*args), host_paced=True
+    )}
     kv_rows = 4 * 1001
     per_row = HD // 2 + 2 * (HD // 32) * 2  # codes + f16 scale and zero
     b_ms, by = bound(
@@ -859,10 +1100,16 @@ def serving_ragged(ex, manager, sessions, fresh, client, gen, outs):
     (r=36 -> rb=64, 64 x 32 heads = 2048: the ragged kernel's route), and a
     tree ragged step of 4 x 8-node trees; each beside the same work
     dispatched separately. Every step is rewound after it runs. Returns
-    the median times and a function running one fused step (profiling)."""
+    the median times, the launch counts of the fused steps ("ragged") and
+    of the separately dispatched yardstick ("ragged_yardstick"), each set
+    to 0 just before its steps run, and a function running one fused step
+    (profiling)."""
+    import collections
+
     import torch
 
     from bloombee_tpu_torch.models.head import embed_impl
+    from bloombee_tpu_torch.ops.cuda import build
 
     vocab = client["embed"].shape[0]
 
@@ -908,13 +1155,22 @@ def serving_ragged(ex, manager, sessions, fresh, client, gen, outs):
             outs.append(ex.decode(h, d, commit=False, tree_mask=tm,
                                   depths=dep, fetch=False))
 
+    launches = collections.defaultdict(collections.Counter)
+
+    def timed(fn, path):
+        build.reset_launch_counts()
+        seconds = median_s(fn)
+        torch.cuda.synchronize()
+        launches[path].update(build.LAUNCHES)
+        return seconds
+
     stats = {
-        "mixed_s": median_s(mixed),
-        "mixed_separate_s": median_s(mixed_separate),
-        "tree_s": median_s(tree),
-        "tree_separate_s": median_s(tree_separate),
+        "mixed_s": timed(mixed, "ragged"),
+        "mixed_separate_s": timed(mixed_separate, "ragged_yardstick"),
+        "tree_s": timed(tree, "ragged"),
+        "tree_separate_s": timed(tree_separate, "ragged_yardstick"),
     }
-    return stats, mixed
+    return stats, {k: dict(v) for k, v in launches.items()}, mixed
 
 
 def arena_gib(manager) -> float:
@@ -1090,12 +1346,10 @@ def phase_serving(profile: bool = False) -> dict[str, dict]:
             torch.cuda.synchronize()
             stats["launches"]["serving"] = dict(build.LAUNCHES)
 
-            build.reset_launch_counts()
-            ragged, mixed_step = serving_ragged(
+            ragged, ragged_launches, mixed_step = serving_ragged(
                 ex, manager, handles, fresh, client, gen, outs
             )
-            torch.cuda.synchronize()
-            stats["launches"]["ragged"] = dict(build.LAUNCHES)
+            stats["launches"].update(ragged_launches)
             stats.update(ragged)
             stats["finite"] = all(
                 torch.isfinite(o.float()).all().item() for o in outs
@@ -1140,7 +1394,7 @@ def phase_serving(profile: bool = False) -> dict[str, dict]:
         f"{stats['mixed_separate_s'] * 1e3:.2f} ms; tree ragged step of 4 x "
         f"8-node trees {stats['tree_s'] * 1e3:.2f} ms vs 4 solo tree "
         f"verifies {stats['tree_separate_s'] * 1e3:.2f} ms; launches "
-        f"{launches['ragged']}")
+        f"{launches['ragged']}, yardstick {launches['ragged_yardstick']}")
     torch.cuda.synchronize()
     int4 = serving_int4(layers, spec, client, gen, profile)
     launches["int4"] = int4["launches"]
@@ -1164,6 +1418,12 @@ def phase_serving(profile: bool = False) -> dict[str, dict]:
     ]
     if missing:
         raise AssertionError(f"serving run never launched {missing}")
+    per_step = launches["serving"]["paged_decode_attention"] / 32
+    if per_step != spec.num_hidden_layers:
+        raise AssertionError(
+            f"{per_step} decode launches per bf16 decode step, want one per "
+            f"layer ({spec.num_hidden_layers})"
+        )
     return launches
 
 
@@ -1212,7 +1472,12 @@ def main() -> int:
             path: counts[row["name"]]
             for path, counts in by_path.items() if row["name"] in counts
         }
-        row["launches"] = sum(row["launches_by_path"].values())
+        # the yardstick re-dispatches the ragged steps' work only to time
+        # it: not a main path's launches
+        row["launches"] = sum(
+            n for path, n in row["launches_by_path"].items()
+            if path != "ragged_yardstick"
+        )
     say(json.dumps({"kernels": kernels}))
     say(card_line())
     say(json.dumps({
