@@ -20,6 +20,8 @@ from typing import NamedTuple
 
 import torch
 
+from bloombee_tpu_torch.utils.device import resolve_device
+
 GROUP_SIZE = 32
 
 
@@ -44,8 +46,10 @@ def _group(hd: int) -> int:
     return gs
 
 
-def make_quant_slab(shape: tuple[int, ...], device="cpu") -> QuantSlab:
-    """Empty quantized slab for a dense-equivalent shape [..., hd]."""
+def make_quant_slab(shape: tuple[int, ...], device="cuda") -> QuantSlab:
+    """Empty quantized slab for a dense-equivalent shape [..., hd], on the
+    card unless the caller asks for another device."""
+    device = resolve_device(device)
     *lead, hd = shape
     groups = hd // _group(hd)
     return QuantSlab(

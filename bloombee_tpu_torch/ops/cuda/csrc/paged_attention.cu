@@ -1,17 +1,10 @@
-// Int4 paged decode and paged chunk attention for Hopper (sm_90a):
-// attention read straight off the paged KV arena, the page table steering
-// each key read, online softmax in f32 (body and K/V readers in
-// paged_common.cuh). The bf16/f32 decode kernel has its own split-over-keys
-// design in paged_decode.cu.
+// Paged chunk attention for Hopper (sm_90a): attention read straight off
+// the paged KV arena, the page table steering each key read, online softmax
+// in f32 (body and K/V row reader in paged_common.cuh). The decode kernels
+// (bf16/f32 and int4) are split over keys in paged_decode.cu, the ragged
+// kernel in paged_ragged.cu.
 //
 // Replaces, in bloombee_tpu/ops/pallas/paged_attention.py:
-// - paged_decode_attention_int4 (body `_int4_kernel`): q [B,H,hd], one
-//   decode token per sequence at position lens[b]-1; keys visible at
-//   positions < lens[b], and >= lens[b]-window when window > 0; over an
-//   int4 arena, codes [S_tot,Hkv,hd/2] u8 + scale/zero [S_tot,Hkv,hd/32]
-//   f16, dequantized in registers as each row is read. The Pallas kernel's
-//   evens-then-odds permutation of q (a lane-layout workaround) is not
-//   carried over: a lane reads whole bytes and holds the dims 2j, 2j+1.
 // - paged_chunk_attention (body `_chunk_kernel`): q [B,T,H,hd], the step's
 //   tokens at positions [lens[b]-t_real, lens[b]); causal with an optional
 //   per-query window, or (tree mode) the committed prefix fully visible and
@@ -20,11 +13,9 @@
 // All: page_table i32 [B,NP], lens i32 [B]; query head h reads KV head
 // h / g (g = H / Hkv); keys exist only in the NP pages of the table.
 //
-// One CTA per (KV head, query token, sequence). Bound on H100: bytes.
-// int4 decode reads each visible K/V row once per (sequence, KV head), 80 B
-// per row and head at hd 128 against 256 B in bf16, for 4*g*hd flops. The
-// chunk variant re-reads the context once per query token (from L2 after
-// the first), which a later query-tiled kernel removes.
+// One CTA per (KV head, query token, sequence). Bound on H100: bytes. The
+// kernel re-reads the context once per query token (from L2 after the
+// first), which a later query-tiled kernel removes.
 
 #include "paged_common.cuh"
 
@@ -84,26 +75,9 @@ struct DenseLaunch {
   }
 };
 
-template <typename T, int HD, int G>
-struct Int4Launch {
-  static int run(const void* q, const void* kc, const void* ks,
-                 const void* kz, const void* vc, const void* vs,
-                 const void* vz, const int* pt, const int* lens, void* out,
-                 int B, int HKV, int NP, int page_size, int window,
-                 float scale, cudaStream_t stream) {
-    const Int4KV<HD> kv{(const unsigned char*)kc, (const __half*)ks,
-                        (const __half*)kz, (const unsigned char*)vc,
-                        (const __half*)vs, (const __half*)vz, HKV};
-    paged_kernel<T, HD, G><<<dim3(HKV, 1, B), NT, 0, stream>>>(
-        (const T*)q, kv, pt, lens, nullptr, (T*)out, 1, HKV, NP, page_size,
-        window, 1, scale);
-    return (int)cudaGetLastError();
-  }
-};
-
 }  // namespace
 
-// dtype (of q and out): 0 = float32, 1 = bfloat16. Each returns 0, a
+// dtype (of q, the slabs and out): 0 = float32, 1 = bfloat16. Returns 0, a
 // cudaError_t code, or -1 for a dtype / head_dim / group size this library
 // was not compiled for.
 extern "C" int bb_paged_chunk_attention(
@@ -115,16 +89,4 @@ extern "C" int bb_paged_chunk_attention(
                                page_table, lens, tree, out, B, TQ, HKV, NP,
                                page_size, window, t_real, scale,
                                (cudaStream_t)stream);
-}
-
-extern "C" int bb_paged_decode_attention_int4(
-    const void* q, const void* k_codes, const void* k_scale,
-    const void* k_zero, const void* v_codes, const void* v_scale,
-    const void* v_zero, const int* page_table, const int* lens, void* out,
-    int B, int H, int HKV, int HD, int NP, int page_size, int window,
-    float scale, int dtype, void* stream) {
-  return dispatch<Int4Launch>(dtype, HD, H / HKV, q, k_codes, k_scale,
-                              k_zero, v_codes, v_scale, v_zero, page_table,
-                              lens, out, B, HKV, NP, page_size, window,
-                              scale, (cudaStream_t)stream);
 }

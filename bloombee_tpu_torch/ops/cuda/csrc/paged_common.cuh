@@ -1,7 +1,9 @@
-// Device code shared by the paged attention kernels (paged_attention.cu,
-// paged_ragged.cu): the K/V row readers of the dense and the int4 arena,
-// the online-softmax body that attends one query row's g heads over the
-// visible keys of one sequence, and the dtype / head_dim / group dispatch.
+// Device code of the paged kernels: the dtype conversions and the dtype /
+// head_dim / group dispatch that every paged source uses, and the
+// per-key online-softmax body (`attend_rows`, with the dense K/V row
+// reader) that now serves only paged_chunk_attention (paged_attention.cu);
+// the decode, int4 decode and ragged kernels run on the split-over-keys
+// body of paged_split.cuh.
 //
 // Design of the body: one CTA of 8 warps per (KV head, query row), covering
 // the g query heads that share that KV head, so each K/V row is read once
@@ -55,48 +57,6 @@ struct DenseKV {
       kr[i] = to_f(k[off + 32 * i]);
       vr[i] = to_f(v[off + 32 * i]);
     }
-  }
-};
-
-// An int4 slab (kv/quant.py layout): codes [S_tot, HKV, HD/2] u8 with the
-// even head position in the low nibble and the odd one in the high nibble;
-// scale and zero [S_tot, HKV, HD/32] f16 per group of 32 positions. A lane
-// owns whole bytes j = lane + 32 jj, i.e. dims 2j and 2j+1 of group j/16,
-// and dequantizes them in registers as code * scale + zero in f32 (rounded
-// as the plain version rounds: no fused multiply-add).
-template <int HD>
-struct Int4KV {
-  static constexpr int PER = HD / 32;
-  static constexpr int GROUPS = HD / 32;
-  const unsigned char* kc;
-  const __half* ks;
-  const __half* kz;
-  const unsigned char* vc;
-  const __half* vs;
-  const __half* vz;
-  int hkv;
-
-  __device__ static int dim(int lane, int i) {
-    return 2 * (lane + 32 * (i >> 1)) + (i & 1);
-  }
-  __device__ static void deq(const unsigned char* c, const __half* s,
-                             const __half* z, size_t row, int lane,
-                             float* out) {
-#pragma unroll
-    for (int jj = 0; jj < PER / 2; ++jj) {
-      const int j = lane + 32 * jj;
-      const unsigned int byte = c[row * (HD / 2) + j];
-      const float sc = __half2float(s[row * GROUPS + j / 16]);
-      const float zr = __half2float(z[row * GROUPS + j / 16]);
-      out[2 * jj] = __fadd_rn(__fmul_rn((float)(byte & 0xFu), sc), zr);
-      out[2 * jj + 1] = __fadd_rn(__fmul_rn((float)(byte >> 4), sc), zr);
-    }
-  }
-  __device__ void load(int slot, int kvh, int lane, float* kr,
-                       float* vr) const {
-    const size_t row = (size_t)slot * hkv + kvh;
-    deq(kc, ks, kz, row, lane, kr);
-    deq(vc, vs, vz, row, lane, vr);
   }
 };
 

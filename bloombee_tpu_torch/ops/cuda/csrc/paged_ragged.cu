@@ -1,7 +1,7 @@
 // Paged ragged attention for Hopper (sm_90a): R query rows spread unevenly
 // over B sequences (N decode rows, linearized tree-verify rows and at most
-// one prefill chunk) in one launch, read straight off the paged KV arena
-// (body in paged_common.cuh).
+// one prefill chunk) in one launch, read straight off the paged KV arena,
+// split over keys like the decode kernels (paged_split.cuh).
 //
 // Replaces bloombee_tpu/ops/pallas/paged_attention.py::paged_ragged_attention
 // (body `_ragged_kernel`): q [R,H,hd], slabs [S_tot,Hkv,hd], page_table i32
@@ -12,28 +12,319 @@
 // keys below lens[b] - nt[b] (the committed prefix) are visible, and the
 // m-th in-step key iff tree_rows[i, m] != 0.
 //
-// Design: one CTA per (KV head, row). The row looks up its sequence and
-// position and walks only that sequence's visible keys through its page
-// table; the tree row is a table lookup. The Pallas kernel walks every
-// sequence's pages for every row (x B masked work, a one-hot matmul in
-// place of the tree gather, rows repeated per head) because Mosaic needs a
-// static block per grid step; none of that is carried over.
+// Bound on H100: bytes. Each sequence's visible K/V rows need reading once
+// for all of its rows (4*hd flops per query head and visible key). The
+// Pallas kernel walks every sequence's pages for every row (a static block
+// per grid step for Mosaic); none of that is carried over. The design:
 //
-// Bound on H100: bytes, as for decode: each row reads its own sequence's
-// visible K/V rows (rows of one sequence re-read them, from L2 after the
-// first). A query-tiled kernel that reads each page once for all rows of
-// a sequence is later work.
+// - The rows are cut into segments: a segment starts at every multiple of
+//   TR = 64 / g rows (64 query rows of one KV head) and wherever the owning
+//   sequence changes, so it holds at most TR rows of one sequence. Each
+//   sequence's key range [0, NP*page_size) is cut into `chunks` page-aligned
+//   chunks. One CTA of 4 warps per (chunk, KV head, segment): the grid's
+//   segment axis is sized on the host from the shapes alone (`ragged_split`:
+//   ceil(R / TR) row tiles plus one per sequence, which bounds the segments
+//   when each sequence's rows are contiguous and the padding rows come last,
+//   as the executor packs them), and each CTA finds its own segment from
+//   q_seq (a ballot over the rows). Any other layout is computed right too:
+//   the grid's last CTA of each (chunk, KV head) walks every segment past
+//   the grid, one after another. A CTA past the last segment leaves at once.
+//   The rows of a segment share every K/V tile it reads: a tree step's 8
+//   rows read their prefix once, not 8 times, and decode rows of different
+//   sequences run in parallel CTAs, not one after another. A CTA whose
+//   chunk lies outside its rows' visible keys (chunk rows of a short
+//   prefill, padding rows, lens 0) reads nothing and stores empty states.
+// - K/V rows are staged whole with cp.async in a 2-stage ring of 64-key
+//   tiles (32 in f32). In bf16 every segment runs on the tensor cores
+//   (mma.sync m16n8k16), the 4 warps split over its row blocks of 16 query
+//   rows and then over the tile's keys (one decode row: 4 warps of 16
+//   keys each, agreeing on one max per row and tile through shared
+//   memory), P.V fed P as two bf16 terms (hi + lo: one term misses the
+//   per-element limit on rows with few keys). f32 runs on the CUDA cores
+//   (every lane whole keys, one max and one sum per row and tile).
+// - Each CTA stores (m, l, acc) per query row in f32; the last CTA of each
+//   (segment, KV head), counted by an atomic counter (one per first row of
+//   a segment and KV head) that it resets to 0, merges the chunks in the
+//   same launch and writes the output.
 
-#include "paged_common.cuh"
+#include <climits>
+
+#include "paged_split.cuh"
 
 namespace {
 
-using namespace bbpaged;
+using namespace bbsplit;
+
+constexpr int QROWS = 64;  // query rows (rows x g) of one KV head per CTA
+// the most chunks: the merge keeps 2 * QROWS * MAX_CHUNKS f32 weights and
+// sums in the ring (`paged_attention.RAGGED_MAX_CHUNKS` plans no more)
+constexpr int MAX_CHUNKS = 64;
+
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p,
+                                        bool trans) {
+  if (trans)
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
+        "[%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(bbasync::smem_addr(p)));
+  else
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(bbasync::smem_addr(p)));
+}
+
+__device__ __forceinline__ void mma16816(float (&d)[4],
+                                         const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned pack(float x, float y) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+// p (two probabilities) as hi + lo bf16 terms
+__device__ __forceinline__ void split2(float x, float y, unsigned& hi,
+                                       unsigned& lo) {
+  const float xh = __bfloat162float(__float2bfloat16_rn(x));
+  const float yh = __bfloat162float(__float2bfloat16_rn(y));
+  hi = pack(xh, yh);
+  lo = pack(x - xh, y - yh);
+}
+
+// The tensor-core tile body for a segment's nq <= 64 query rows: row
+// block rb (16 query rows of qm [QROWS][HD + 8] bf16; rows past nq are
+// zeros) and key part kp (TK / KS keys of the tile) per warp, KS = 4 / NB
+// warps sharing each of the NB = 4 / KS row blocks, so that all 4 warps
+// work on a short segment too (one decode row: 4 key parts of 16 keys).
+// The warps of a row block agree on one max per row and tile through
+// shared memory (`red`), so their partial sums and P.V accumulators share
+// one scale and add up at the end. Accumulators sit in mma's C layout
+// (rows lane / 4 and lane / 4 + 8, columns 2 (lane % 4) + {0, 1} of each
+// 8-wide tile).
+template <int HD>
+struct Mma {
+  static constexpr int LDQ = HD + 8;
+  float o[HD / 8][4];
+  float m[2], l[2];  // l: this lane's share of its rows' sums
+
+  __device__ void init() {
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      m[r] = -CUDART_INF_F;
+      l[r] = 0.f;
+    }
+  }
+
+  // red: shared [KS][QROWS] floats. All threads call this.
+  template <int KS, int LD, int TK, class Vis>
+  __device__ void tile(const __nv_bfloat16* kt, const __nv_bfloat16* vt,
+                       const __nv_bfloat16* qm, int nq, int nk, float scale,
+                       Vis vis, float* red) {
+    constexpr int NB = 4 / KS, KW = TK / KS;  // row blocks, keys per warp
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int rb = warp % NB, k0 = warp / NB * KW;
+    const bool active = 16 * rb < nq;
+    const int g = lane >> 2, t4 = lane & 3;
+    const float NEG_INF = -CUDART_INF_F;
+
+    float s[KW / 8][4];
+#pragma unroll
+    for (int j = 0; j < KW / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    if (active) {
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        unsigned a[4];
+        ldsm_x4(a,
+                qm + (16 * rb + (lane & 7) + ((lane >> 3) & 1) * 8) * LDQ +
+                    kk * 16 + (lane >> 4) * 8,
+                false);
+#pragma unroll
+        for (int np = 0; np < KW / 16; ++np) {
+          unsigned b[4];
+          ldsm_x4(b,
+                  kt + (k0 + 16 * np + (lane & 7) + (lane >> 4) * 8) * LD +
+                      kk * 16 + ((lane >> 3) & 1) * 8,
+                  false);
+          mma16816(s[2 * np], a, b[0], b[1]);
+          mma16816(s[2 * np + 1], a, b[2], b[3]);
+        }
+      }
+    }
+
+    // one max per query row and tile: over this warp's keys (4 lanes
+    // share a row), then over the key parts
+    float mx[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qr = 16 * rb + g + 8 * r;
+      mx[r] = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < KW / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = k0 + 8 * j + 2 * t4 + e;
+          float& x = s[j][2 * r + e];
+          x = qr < nq && key < nk && vis(qr, key) ? x * scale : NEG_INF;
+          mx[r] = fmaxf(mx[r], x);
+        }
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    }
+    if constexpr (KS > 1) {
+      if (t4 == 0) {
+        red[warp / NB * QROWS + 16 * rb + g] = mx[0];
+        red[warp / NB * QROWS + 16 * rb + g + 8] = mx[1];
+      }
+      __syncthreads();
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int p = 0; p < KS; ++p)
+          mx[r] = fmaxf(mx[r], red[p * QROWS + 16 * rb + g + 8 * r]);
+    }
+    if (!active) return;
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m[r], mx[r]);
+      const float base = m_new == NEG_INF ? 0.f : m_new;
+      const float corr = __expf(m[r] - base);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < KW / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[j][2 * r + e];
+          x = __expf(x - base);
+          sum += x;
+        }
+      l[r] = l[r] * corr + sum;
+      m[r] = m_new;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        o[j][2 * r] *= corr;
+        o[j][2 * r + 1] *= corr;
+      }
+    }
+
+    // P.V: the score accumulators of keys 16 kk .. 16 kk + 15 of this
+    // warp's part are mma's A fragment of that k-step; keys past nk have
+    // p = 0 and zeroed rows
+#pragma unroll
+    for (int kk = 0; kk < KW / 16; ++kk) {
+      unsigned ah[4], al[4];
+      split2(s[2 * kk][0], s[2 * kk][1], ah[0], al[0]);
+      split2(s[2 * kk][2], s[2 * kk][3], ah[1], al[1]);
+      split2(s[2 * kk + 1][0], s[2 * kk + 1][1], ah[2], al[2]);
+      split2(s[2 * kk + 1][2], s[2 * kk + 1][3], ah[3], al[3]);
+#pragma unroll
+      for (int dp = 0; dp < HD / 16; ++dp) {
+        unsigned b[4];
+        ldsm_x4(b,
+                vt + (k0 + 16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                         LD +
+                    16 * dp + (lane >> 4) * 8,
+                true);
+        mma16816(o[2 * dp], ah, b[0], b[1]);
+        mma16816(o[2 * dp], al, b[0], b[1]);
+        mma16816(o[2 * dp + 1], ah, b[2], b[3]);
+        mma16816(o[2 * dp + 1], al, b[2], b[3]);
+      }
+    }
+  }
+
+  // The state of query rows [0, nq) into part, the key parts' accumulators
+  // and sums added up through `scratch` (shared, (KS - 1) * (64 / KS) *
+  // (HD + 1) floats, free to overwrite). All threads call this.
+  template <int KS>
+  __device__ void store(float* acc_out, float2* ml_out, int nq,
+                        float* scratch) {
+    constexpr int NB = 4 / KS, QB = 16 * NB;  // query rows of the parts
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int rb = warp % NB, kp = warp / NB;
+    const int g = lane >> 2, t4 = lane & 3;
+    float* ls = scratch + (KS - 1) * QB * HD;  // [KS - 1][QB] sums
+    float sum[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      sum[r] = l[r];
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+    }
+    const bool active = 16 * rb < nq;
+    if constexpr (KS > 1) {
+      __syncthreads();  // every warp is done with the ring
+      if (kp > 0 && active) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int qr = 16 * rb + g + 8 * r;
+          float* dst = scratch + ((kp - 1) * QB + qr) * HD;
+#pragma unroll
+          for (int j = 0; j < HD / 8; ++j)
+            *reinterpret_cast<float2*>(dst + 8 * j + 2 * t4) =
+                make_float2(o[j][2 * r], o[j][2 * r + 1]);
+          if (t4 == 0) ls[(kp - 1) * QB + qr] = sum[r];
+        }
+      }
+      __syncthreads();
+    }
+    if (kp > 0 || !active) return;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qr = 16 * rb + g + 8 * r;
+      if (qr >= nq) continue;
+#pragma unroll
+      for (int p = 1; p < KS; ++p) {
+        const float* src = scratch + ((p - 1) * QB + qr) * HD;
+#pragma unroll
+        for (int j = 0; j < HD / 8; ++j) {
+          const float2 x =
+              *reinterpret_cast<const float2*>(src + 8 * j + 2 * t4);
+          o[j][2 * r] += x.x;
+          o[j][2 * r + 1] += x.y;
+        }
+        sum[r] += ls[(p - 1) * QB + qr];
+      }
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j)
+        *reinterpret_cast<float2*>(acc_out + qr * HD + 8 * j + 2 * t4) =
+            make_float2(o[j][2 * r], o[j][2 * r + 1]);
+      if (t4 == 0) ml_out[qr] = make_float2(m[r], sum[r]);
+    }
+  }
+};
+
+// Shared memory: the ring, then the query rows: bf16 (tensor cores) qm
+// [QROWS][HD + 8] bf16; f32 (CUDA cores) qs [QROWS][HD], ps [QROWS][TK],
+// cs [QROWS] f32.
+template <typename T, int HD>
+__host__ __device__ constexpr size_t ragged_smem_bytes() {
+  using S = DenseStage<T, HD>;
+  static_assert(2 * QROWS * MAX_CHUNKS * sizeof(float) <= S::BYTES,
+                "the merge's weights fit in the ring");
+  return S::BYTES + (sizeof(T) == 2
+                         ? 2 * QROWS * (HD + 8)
+                         : sizeof(float) * QROWS * (HD + S::TK + 1));
+}
 
 template <typename T, int HD, int G>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(SNT)
     ragged_kernel(const T* __restrict__ q,  // [R, H, HD]
-                  DenseKV<T, HD> kv,
+                  DenseStage<T, HD> st,
                   const int* __restrict__ page_table,  // [B, NP]
                   const int* __restrict__ lens,        // [B]
                   const int* __restrict__ q_seq,       // [R]
@@ -41,66 +332,269 @@ __global__ void __launch_bounds__(NT)
                   const int* __restrict__ nt,          // [B] or null
                   const int* __restrict__ tree_rows,   // [R, t_max] or null
                   T* __restrict__ out,                 // [R, H, HD]
-                  int B, int HKV, int NP, int page_size, int window,
-                  int t_max, float scale) {
-  const int kvh = blockIdx.x, i = blockIdx.y;
-  const int s = q_seq[i];
-  int lo = 0, hi = 0, ss = 0;
-  const int* trow = nullptr;
-  if (s < B) {  // a padding row sees no key
-    const int len = lens[s];
-    if (tree_rows != nullptr) {
-      hi = len;
-      ss = len - nt[s];  // first in-step position of the sequence
-      trow = tree_rows + (size_t)i * t_max;
-    } else {
-      const int qpos = q_pos[i];
-      hi = min(len, qpos + 1);
-      lo = window > 0 ? max(qpos + 1 - window, 0) : 0;
-    }
-  }
-  hi = min(hi, NP * page_size);
+                  float* __restrict__ part,            // chunk states
+                  int* __restrict__ counter,           // [R * HKV], zero
+                  int R, int B, int HKV, int NP, int page_size, int window,
+                  int t_max, int chunk, float scale) {
+  using S = DenseStage<T, HD>;
+  constexpr int TK = S::TK, LD = S::LD;
+  constexpr int TR = QROWS / G;  // the most rows of a segment
+  constexpr bool MMA = sizeof(T) == 2;  // bf16: tensor cores
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  st.bind(smem_raw);
+  float* qs = reinterpret_cast<float*>(smem_raw + S::BYTES);  // [QROWS][HD]
+  float* ps = qs + QROWS * HD;  // [QROWS][TK]
+  float* cs = ps + QROWS * TK;  // [QROWS]
+  __nv_bfloat16* qm =  // [QROWS][HD + 8]
+      reinterpret_cast<__nv_bfloat16*>(smem_raw + S::BYTES);
+  // per row of the segment: visible keys [lo, hi), in-step keys from ss
+  // on (tree mode)
+  __shared__ int r_lo[TR], r_hi[TR], r_ss[TR];
+  __shared__ int seg[2], counts[SNT / 32];
+  __shared__ float total[QROWS];  // the merge's per-row sums
 
-  auto visible = [=](int pos) {
-    if (trow == nullptr || pos < ss) return true;
-    const int m = pos - ss;  // in-step key: the tree row decides
-    return m < t_max && trow[m] != 0;
-  };
-  const size_t row = ((size_t)i * HKV + kvh) * G;
-  attend_rows<T, HD, G>(q + row * HD, out + row * HD, kv, kvh,
-                        page_table + (size_t)(s < B ? s : 0) * NP, page_size,
-                        lo, hi, visible, scale);
+  const int c = blockIdx.x, kvh = blockIdx.y;
+  const int C = gridDim.x;
+  const int H = HKV * G;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int cap = NP * page_size;
+  const float NEG_INF = -CUDART_INF_F;
+
+  // segment z = blockIdx.z; the grid's last z goes on to every segment
+  // past the grid, one after another
+  for (int z = blockIdx.z;; ++z) {
+    if (z > (int)blockIdx.z) {
+      if (blockIdx.z + 1 < gridDim.z) return;
+      __syncthreads();  // the last segment's shared memory is free
+    }
+    // this CTA's segment of rows: a segment starts at every multiple of TR
+    // and wherever the owning sequence changes (all padding rows, q_seq >=
+    // B, count as one owner); segment z is [seg[0], seg[1])
+    if (tid == 0) seg[0] = seg[1] = R;
+    int before = 0;  // segment starts in earlier rounds
+    for (int base = 0; base < R && before <= z + 1; base += SNT) {
+      const int i = base + tid;
+      bool start = false;
+      if (i < R) {
+        const int s = q_seq[i], p = i > 0 ? q_seq[i - 1] : 0;
+        start = i % TR == 0 || (s < B ? s : -1) != (p < B ? p : -1);
+      }
+      const unsigned mask = __ballot_sync(0xffffffffu, start);
+      if (lane == 0) counts[warp] = __popc(mask);
+      __syncthreads();
+      int rank = before + __popc(mask & ((1u << lane) - 1));
+      int n_starts = 0;
+#pragma unroll
+      for (int w = 0; w < SNT / 32; ++w) {
+        rank += w < warp ? counts[w] : 0;
+        n_starts += counts[w];
+      }
+      if (start && rank == z) seg[0] = i;
+      if (start && rank == z + 1) seg[1] = i;
+      before += n_starts;
+      __syncthreads();
+    }
+    const int i0 = seg[0], i1 = seg[1];
+    if (i0 >= R) return;  // no segment z: its unit has no CTA that counts
+    const int nrows = i1 - i0, nq = nrows * G;
+    const int s0 = q_seq[i0];
+    const int s = s0 < B ? s0 : -1;
+
+    if (tid < nrows) {
+      const int i = i0 + tid;
+      int lo = 0, hi = 0, ss = INT_MAX;
+      if (s >= 0) {
+        const int len = lens[s];
+        if (tree_rows != nullptr) {
+          hi = len;
+          ss = len - nt[s];
+        } else {
+          const int qpos = q_pos[i];
+          hi = min(len, qpos + 1);
+          lo = window > 0 ? max(qpos + 1 - window, 0) : 0;
+        }
+      }
+      r_lo[tid] = lo;
+      r_hi[tid] = min(hi, cap);
+      r_ss[tid] = ss;
+    }
+    __syncthreads();
+    // the segment's keys in this chunk: the union of its rows' ranges;
+    // keys in [lo_all, hi_all) are visible to every row
+    int lo = INT_MAX, hi = 0, lo_all = 0, hi_all = INT_MAX;
+    for (int r = 0; r < nrows; ++r) {
+      if (r_lo[r] < r_hi[r]) {
+        lo = min(lo, r_lo[r]);
+        hi = max(hi, r_hi[r]);
+      }
+      lo_all = max(lo_all, r_lo[r]);
+      hi_all = min(hi_all, min(r_hi[r], r_ss[r]));
+    }
+    lo = max(lo, c * chunk);
+    hi = min(hi, (c + 1) * chunk);
+    const int n = s >= 0 ? max(hi - lo, 0) : 0;
+    const int ntiles = (n + TK - 1) / TK;
+    const int* pt = page_table + (size_t)max(s, 0) * NP;
+
+    auto load = [&](int t) {
+      st.load(t & 1, n - t * TK, kvh, [&](int r) {
+        const int pos = lo + t * TK + r;
+        return pt[pos / page_size] * page_size + pos % page_size;
+      });
+    };
+    if (ntiles > 0) load(0);
+    bbasync::commit();
+
+    // part: acc [HKV, C, R * G, HD] then (m, l) [HKV, C, R * G]; the
+    // unit's rows start at query row i0 * G
+    const size_t RQ = (size_t)R * G;
+    float* const acc_all =
+        part + (size_t)kvh * C * RQ * HD + (size_t)i0 * G * HD;
+    float2* const ml_all = reinterpret_cast<float2*>(
+        part + (size_t)HKV * C * RQ * HD) + (size_t)kvh * C * RQ + i0 * G;
+    float* const acc_c = acc_all + (size_t)c * RQ * HD;
+    float2* const ml_c = ml_all + (size_t)c * RQ;
+
+    const T* qb = q + ((size_t)i0 * H + kvh * G) * HD;
+    if (s < 0) {  // padding rows: exact zeros, written once, no merge
+      if (c == 0)
+        for (int i = tid; i < nq * HD; i += SNT)
+          out[((size_t)(i0 + i / (G * HD)) * H + kvh * G) * HD +
+              i % (G * HD)] = from_f<T>(0.f);
+      continue;
+    }
+    if (ntiles == 0) {  // no key of the chunk: an empty state per query row
+      for (int i = tid; i < nq; i += SNT) ml_c[i] = make_float2(NEG_INF, 0.f);
+    }
+
+    // the chunk's tiles, each handed to body(kt, vt, nk, vis) once staged
+    auto walk = [&](auto&& body) {
+      for (int t = 0; t < ntiles; ++t) {
+        if (t + 1 < ntiles) load(t + 1);
+        bbasync::commit();
+        bbasync::wait<1>();  // tile t
+        __syncthreads();
+        const int kbase = lo + t * TK, nk = min(TK, n - t * TK);
+        const bool full = kbase >= lo_all && kbase + nk <= hi_all;
+        auto vis = [&](int qr, int key) {
+          if (full) return true;  // every row sees the whole tile
+          const int r = qr / G, pos = kbase + key;
+          if (pos < r_lo[r] || pos >= r_hi[r]) return false;
+          const int m = pos - r_ss[r];  // in-step key: the tree row decides
+          return m < 0 ||
+                 (m < t_max && tree_rows[(size_t)(i0 + r) * t_max + m] != 0);
+        };
+        body(st.keys(t & 1), st.values(t & 1), nk, vis);
+        __syncthreads();  // stage t & 1 and ps are refilled next
+      }
+      bbasync::wait<0>();
+    };
+
+    if (ntiles > 0) {
+      if constexpr (MMA) {
+        const int pad = (nq + 15) / 16 * 16;
+        for (int i = tid; i < pad * (HD / 8); i += SNT) {
+          const int qr = i / (HD / 8), piece = i % (HD / 8);
+          uint4 x = make_uint4(0, 0, 0, 0);
+          if (qr < nq)
+            x = *reinterpret_cast<const uint4*>(
+                qb + ((size_t)(qr / G) * H + qr % G) * HD + piece * 8);
+          *reinterpret_cast<uint4*>(qm + qr * (HD + 8) + piece * 8) = x;
+        }
+        // warps per row block: 4 for one block of 16 query rows, 2 for two
+        const int ks = pad == 16 ? 4 : pad == 32 ? 2 : 1;
+        __shared__ float red[4 * QROWS];
+        Mma<HD> mma;
+        mma.init();
+        walk([&](const T* kt, const T* vt, int nk, auto&& vis) {
+          if (ks == 4)
+            mma.template tile<4, LD, TK>(kt, vt, qm, nq, nk, scale, vis, red);
+          else if (ks == 2)
+            mma.template tile<2, LD, TK>(kt, vt, qm, nq, nk, scale, vis, red);
+          else
+            mma.template tile<1, LD, TK>(kt, vt, qm, nq, nk, scale, vis, red);
+        });
+        float* scratch = reinterpret_cast<float*>(smem_raw);  // the ring
+        if (ks == 4)
+          mma.template store<4>(acc_c, ml_c, nq, scratch);
+        else if (ks == 2)
+          mma.template store<2>(acc_c, ml_c, nq, scratch);
+        else
+          mma.template store<1>(acc_c, ml_c, nq, scratch);
+      } else {  // f32, CUDA cores: the query rows scaled, in qs
+        for (int i = tid; i < nq * HD; i += SNT) {
+          const int qr = i / HD, d = i % HD;
+          qs[i] = to_f(qb[((size_t)(qr / G) * H + qr % G) * HD + d]) * scale;
+        }
+        Core<T, HD, QROWS, TK> core;
+        core.init();
+        walk([&](const T* kt, const T* vt, int nk, auto&& vis) {
+          core.template tile<LD>(kt, vt, qs, ps, cs, nq, nk, vis);
+        });
+        core.store(acc_c, ml_c, nq);
+      }
+    }
+
+    if (!arrive_last(counter + (size_t)i0 * HKV + kvh, C)) continue;
+    // the ring's shared memory holds the 2 * nq * C chunk weights and sums
+    // (nq <= QROWS, C <= MAX_CHUNKS)
+    merge_chunks<T, HD, QROWS>(
+        acc_all, ml_all, C, (int)RQ, nq, reinterpret_cast<float*>(smem_raw),
+        total, [&](int qr) {
+          return out + ((size_t)(i0 + qr / G) * H + kvh * G + qr % G) * HD;
+        });
+  }
 }
 
 template <typename T, int HD, int G>
 struct RaggedLaunch {
   static int run(const void* q, const void* k, const void* v, const int* pt,
                  const int* lens, const int* q_seq, const int* q_pos,
-                 const int* nt, const int* tree_rows, void* out, int R,
-                 int B, int HKV, int NP, int page_size, int window,
-                 int t_max, float scale, cudaStream_t stream) {
-    const DenseKV<T, HD> kv{(const T*)k, (const T*)v, HKV};
-    ragged_kernel<T, HD, G><<<dim3(HKV, R), NT, 0, stream>>>(
-        (const T*)q, kv, pt, lens, q_seq, q_pos, nt, tree_rows, (T*)out, B,
-        HKV, NP, page_size, window, t_max, scale);
+                 const int* nt, const int* tree_rows, void* out, float* part,
+                 int* counter, int R, int B, int HKV, int NP, int page_size,
+                 int window, int t_max, int chunk, int chunks, int segments,
+                 float scale, cudaStream_t stream) {
+    const size_t smem = ragged_smem_bytes<T, HD>();
+    cudaError_t err = cudaFuncSetAttribute(
+        ragged_kernel<T, HD, G>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    DenseStage<T, HD> st{};
+    st.k = (const T*)k;
+    st.v = (const T*)v;
+    st.hkv = HKV;
+    const dim3 grid(chunks, HKV, segments);
+    ragged_kernel<T, HD, G><<<grid, SNT, smem, stream>>>(
+        (const T*)q, st, pt, lens, q_seq, q_pos, nt, tree_rows, (T*)out,
+        part, counter, R, B, HKV, NP, page_size, window, t_max, chunk,
+        scale);
     return (int)cudaGetLastError();
   }
 };
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. nt and tree_rows are both null
-// (causal mode) or both set (tree mode). Returns 0, a cudaError_t code, or
-// -1 for a dtype / head_dim / group size this library was not compiled for.
+// dtype: 0 = float32, 1 = bfloat16. nt and tree_rows are both null (causal
+// mode) or both set (tree mode). The plan comes from the host planner
+// (`ragged_split`): `chunk` keys (a multiple of page_size) in each of
+// `chunks` <= MAX_CHUNKS chunks, and `segments` CTAs along the grid's
+// segment axis (any number >= 1 is right; too few walks the rest one after
+// another). `part` holds HKV*chunks*R*g*(HD+2) floats and `counter` R*HKV
+// ints that are 0 before the launch and 0 after it. The slabs and q must
+// be 16-byte aligned. Returns 0, a cudaError_t code, or -1 for a plan out
+// of range or a dtype / head_dim / group size this library was not
+// compiled for.
 extern "C" int bb_paged_ragged_attention(
     const void* q, const void* k_slab, const void* v_slab,
     const int* page_table, const int* lens, const int* q_seq,
-    const int* q_pos, const int* nt, const int* tree_rows, void* out, int R,
-    int B, int H, int HKV, int HD, int NP, int page_size, int window,
-    int t_max, float scale, int dtype, void* stream) {
+    const int* q_pos, const int* nt, const int* tree_rows, void* out,
+    float* part, int* counter, int R, int B, int H, int HKV, int HD, int NP,
+    int page_size, int window, int t_max, int chunk, int chunks,
+    int segments, float scale, int dtype, void* stream) {
   if (R == 0) return 0;
-  return dispatch<RaggedLaunch>(dtype, HD, H / HKV, q, k_slab, v_slab,
-                                page_table, lens, q_seq, q_pos, nt,
-                                tree_rows, out, R, B, HKV, NP, page_size,
-                                window, t_max, scale, (cudaStream_t)stream);
+  if (chunks < 1 || chunks > MAX_CHUNKS || segments < 1) return -1;
+  return bbpaged::dispatch<RaggedLaunch>(
+      dtype, HD, H / HKV, q, k_slab, v_slab, page_table, lens, q_seq, q_pos,
+      nt, tree_rows, out, part, counter, R, B, HKV, NP, page_size, window,
+      t_max, chunk, chunks, segments, scale, (cudaStream_t)stream);
 }

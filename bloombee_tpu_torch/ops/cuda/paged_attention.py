@@ -1,6 +1,8 @@
-"""The paged attention kernels for Hopper (`csrc/paged_decode.cu`,
-`csrc/paged_attention.cu`, `csrc/paged_ragged.cu`; the last two share
-`csrc/paged_common.cuh`) and their plain PyTorch versions.
+"""The paged attention kernels for Hopper and their plain PyTorch versions:
+`csrc/paged_decode.cu` (decode over a dense or an int4 arena) and
+`csrc/paged_ragged.cu`, split over keys on the body of
+`csrc/paged_split.cuh`; `csrc/paged_attention.cu` (chunk, on
+`csrc/paged_common.cuh`).
 
 Replaces, in bloombee_tpu/ops/pallas/paged_attention.py:
 
@@ -10,7 +12,8 @@ Replaces, in bloombee_tpu/ops/pallas/paged_attention.py:
   sequence's keys into page-aligned chunks (`decode_split`, planned on the
   host from the table's shape) and merges them in the same launch.
 - `paged_decode_attention_int4`: the same over an int4-quantized arena
-  (`kv.quant.QuantSlab`), dequantized as it is read.
+  (`kv.quant.QuantSlab`), dequantized as it is read, on the same split
+  kernel body and plan.
 - `paged_chunk_attention`: T>1 steps (short follow-up chunks, tree verify).
   The step's tokens sit at [lens[b]-t_real, lens[b]). Causal mode takes an
   optional per-query window and treats query rows >= t_real as padding;
@@ -21,7 +24,11 @@ Replaces, in bloombee_tpu/ops/pallas/paged_attention.py:
   (q_seq >= B: a padding row). Causal mode: keys at positions < lens[b]
   and <= q_pos, with an optional window. Tree mode: keys below
   lens[b] - nt[b] (the committed prefix) are visible, and the m-th
-  in-step key iff tree_rows[i, m].
+  in-step key iff tree_rows[i, m]. Its kernel splits the keys like decode
+  and the rows into segments of one sequence (`ragged_split`), the rows of
+  a segment sharing every K/V tile it reads. Any layout of q_seq is
+  computed right; the kernel is fast when each sequence's rows are
+  contiguous and the padding rows come last, as the executor packs them.
 
 All read keys only through the page table, keep the softmax and the P.V
 sum in f32 (as the Pallas kernels do), and output zeros for a row with no
@@ -52,8 +59,16 @@ _GROUPS = (1, 2, 4, 8)
 _libs: dict = {}
 # CTAs the split decode kernel aims for: two per SM of an H100's 132
 SPLIT_CTAS = 264
-# per (device, stream): the split decode kernel's int32 counters, zeroed
-# once when allocated; every launch leaves them at zero again
+# the ragged kernel: CTAs it aims for, and the plan's view of its limits
+# (QROWS and MAX_CHUNKS in csrc/paged_ragged.cu): the most query rows (rows
+# x g) of a segment, which sizes the grid's segment axis (too small a grid
+# stays right, only slower), and the most chunks (the kernel refuses more)
+RAGGED_CTAS = 528
+RAGGED_ROWS = 64
+RAGGED_MAX_CHUNKS = 64
+# per (device, stream): the split kernels' int32 counters, zeroed once when
+# allocated and shared by every split launch on that stream (launches on
+# one stream run in order); every launch leaves them at zero again
 _counters: dict = {}
 
 
@@ -219,15 +234,25 @@ def _library(source: str):
         return lib
     lib = build.library(source)
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    split = [
+        vp, vp,  # part, counter
+        i32, i32, i32, i32, i32, i32, i32,  # B, H, Hkv, hd, NP, ps, window
+        i32, i32,  # chunk, chunks
+        f32, i32, vp,  # scale, dtype, stream
+    ]
     if source == DECODE_SOURCE:
         lib.bb_paged_decode_attention.argtypes = [
             vp, vp, vp, vp, vp, vp,  # q, k_slab, v_slab, page_table, lens, out
-            vp, vp,  # part, counter
-            i32, i32, i32, i32, i32, i32, i32,  # B, H, Hkv, hd, NP, ps, window
-            i32, i32,  # chunk, chunks
-            f32, i32, vp,  # scale, dtype, stream
+            *split,
         ]
-        fns = (lib.bb_paged_decode_attention,)
+        lib.bb_paged_decode_attention_int4.argtypes = [
+            vp, vp, vp, vp,  # q, k_slab codes, scale, zero
+            vp, vp, vp,  # v_slab codes, scale, zero
+            vp, vp, vp,  # page_table, lens, out
+            *split,
+        ]
+        fns = (lib.bb_paged_decode_attention,
+               lib.bb_paged_decode_attention_int4)
     elif source == SOURCE:
         lib.bb_paged_chunk_attention.argtypes = [
             vp, vp, vp, vp, vp, vp, vp,  # q, k, v, page_table, lens, tree, out
@@ -235,21 +260,15 @@ def _library(source: str):
             # ps window t_real
             f32, i32, vp,  # scale, dtype, stream
         ]
-        lib.bb_paged_decode_attention_int4.argtypes = [
-            vp, vp, vp, vp,  # q, k_slab codes, scale, zero
-            vp, vp, vp,  # v_slab codes, scale, zero
-            vp, vp, vp,  # page_table, lens, out
-            i32, i32, i32, i32, i32, i32, i32,  # B, H, Hkv, hd, NP, ps, window
-            f32, i32, vp,  # scale, dtype, stream
-        ]
-        fns = (lib.bb_paged_chunk_attention,
-               lib.bb_paged_decode_attention_int4)
+        fns = (lib.bb_paged_chunk_attention,)
     else:
         lib.bb_paged_ragged_attention.argtypes = [
             vp, vp, vp, vp, vp,  # q, k_slab, v_slab, page_table, lens
             vp, vp, vp, vp, vp,  # q_seq, q_pos, nt, tree_rows, out
-            i32, i32, i32, i32, i32, i32, i32, i32, i32,  # R B H Hkv hd NP
-            # ps window t_max
+            vp, vp,  # part, counter
+            i32, i32, i32, i32, i32, i32, i32, i32, i32, i32,  # R B H Hkv
+            # hd NP ps window t_max chunk
+            i32, i32,  # chunks, segments
             f32, i32, vp,  # scale, dtype, stream
         ]
         fns = (lib.bb_paged_ragged_attention,)
@@ -341,6 +360,18 @@ def decode_split(
     return pages * page_size, -(-num_pages // pages)
 
 
+def _counter(device, stream, n: int) -> torch.Tensor:
+    """The split kernels' int32 counters of (device, stream): >= n, zero
+    between launches; grown (a new zeroed tensor) when a launch needs
+    more."""
+    key = (device, stream)
+    counter = _counters.get(key)
+    if counter is None or counter.numel() < n:
+        counter = torch.zeros((n,), dtype=torch.int32, device=device)
+        _counters[key] = counter
+    return counter
+
+
 def decode_buffers(q, hkv, num_pages, page_size, stream):
     """(chunk_keys, chunks, part, counter) for one split decode launch of
     grid (chunks, hkv, B): `part` (f32, one launch's chunk states, None
@@ -355,12 +386,57 @@ def decode_buffers(q, hkv, num_pages, page_size, stream):
             (b * hkv * chunks * (h // hkv) * (hd + 2),),
             dtype=torch.float32, device=q.device,
         )
-    key = (q.device, stream)
-    counter = _counters.get(key)
-    if counter is None or counter.numel() < b * hkv:
-        counter = torch.zeros((b * hkv,), dtype=torch.int32, device=q.device)
-        _counters[key] = counter
-    return chunk, chunks, part, counter
+    return chunk, chunks, part, _counter(q.device, stream, b * hkv)
+
+
+def ragged_split(
+    num_pages: int, page_size: int, r: int, hkv: int, group: int, b: int
+) -> tuple[int, int, int]:
+    """The ragged kernel's plan: (chunk_keys, chunks, segments). The kernel
+    cuts the rows into segments of at most RAGGED_ROWS // group rows of one
+    sequence; `segments` = min(r, ceil(r / (RAGGED_ROWS // group)) + b),
+    its grid's segment axis, bounds how many the r rows of b sequences form
+    when each sequence's rows are contiguous and the padding rows come last
+    (more segments are walked by the grid's last CTAs, one after another).
+    The key range [0, num_pages * page_size) is cut into `chunks` chunks of
+    `chunk_keys` keys, a whole number of pages each (the last may run past
+    the range: the kernel clips it), enough that segments * hkv * chunks
+    CTAs fill RAGGED_CTAS, at most one chunk per page and at most
+    RAGGED_MAX_CHUNKS. A function of the shapes alone: the host never
+    reads lens, q_seq or q_pos."""
+    r = max(r, 1)
+    segments = min(r, -(-r // (RAGGED_ROWS // group)) + b)
+    num_pages = max(num_pages, 1)
+    want = min(max(1, -(-RAGGED_CTAS // (segments * hkv))), num_pages,
+               RAGGED_MAX_CHUNKS)
+    pages = -(-num_pages // want)
+    return pages * page_size, -(-num_pages // pages), segments
+
+
+def ragged_buffers(q, hkv, page_table, page_size, stream):
+    """(chunk_keys, chunks, segments, part, counter) for one ragged launch
+    of grid (chunks, hkv, segments): `part` (f32, allocated per call) holds
+    hkv*chunks*R*g*(hd+2) floats of chunk states; `counter` (int32, >=
+    R*hkv, one per first row of a segment and KV head, zero) comes from the
+    per-(device, stream) pool that the decode kernels use too."""
+    r, h, hd = q.shape
+    b, num_pages = page_table.shape
+    chunk, chunks, segments = ragged_split(
+        num_pages, page_size, r, hkv, h // hkv, b
+    )
+    part = torch.empty(
+        (hkv * chunks * r * h // hkv * (hd + 2),),
+        dtype=torch.float32, device=q.device,
+    )
+    return chunk, chunks, segments, part, _counter(q.device, stream, r * hkv)
+
+
+def _aligned(kernel, named, align: int) -> None:
+    """Raise unless every (name, tensor) starts on an `align`-byte
+    boundary (the kernels copy rows with cp.async of that size)."""
+    for name, x in named:
+        if x.data_ptr() % align:
+            raise ValueError(f"{kernel}: {name} must be {align}-byte aligned")
 
 
 def paged_decode_attention(
@@ -378,9 +454,7 @@ def paged_decode_attention(
             q, k_slab, v_slab, page_table, lens, page_size, scale, window
         )
     _check(DECODE, q, k_slab, v_slab, page_table, lens, page_size)
-    for name, x in (("k_slab", k_slab), ("v_slab", v_slab)):
-        if x.data_ptr() % 16:
-            raise ValueError(f"{DECODE}: {name} must be 16-byte aligned")
+    _aligned(DECODE, (("k_slab", k_slab), ("v_slab", v_slab)), 16)
     lib = _library(DECODE_SOURCE)
     b, h, hd = q.shape
     stream = _stream(q)
@@ -461,15 +535,26 @@ def paged_decode_attention_int4(
             q, k_slab, v_slab, page_table, lens, page_size, scale, window
         )
     _check(INT4, q, k_slab, v_slab, page_table, lens, page_size)
-    lib = _library(SOURCE)
     b, h, hd = q.shape
+    for side, slab in (("k_slab", k_slab), ("v_slab", v_slab)):
+        # whole rows: codes in 16-byte pieces, scale and zero hd/16 bytes
+        _aligned(INT4, ((f"{side}.codes", slab.codes),), 16)
+        _aligned(INT4, ((f"{side}.scale", slab.scale),
+                        (f"{side}.zero", slab.zero)), hd // 16)
+    lib = _library(DECODE_SOURCE)
+    hkv = k_slab.codes.shape[1]
+    stream = _stream(q)
+    chunk, chunks, part, counter = decode_buffers(
+        q, hkv, page_table.shape[1], page_size, stream
+    )
     out = torch.empty_like(q)
     err = lib.bb_paged_decode_attention_int4(
         q.data_ptr(), *(x.data_ptr() for x in k_slab),
         *(x.data_ptr() for x in v_slab), page_table.data_ptr(),
         lens.data_ptr(), out.data_ptr(),
-        b, h, k_slab.codes.shape[1], hd, page_table.shape[1], page_size,
-        int(window), _scale(scale, hd), _DTYPES[q.dtype], _stream(q),
+        None if part is None else part.data_ptr(), counter.data_ptr(),
+        b, h, hkv, hd, page_table.shape[1], page_size, int(window), chunk,
+        chunks, _scale(scale, hd), _DTYPES[q.dtype], stream,
     )
     build.check(err, INT4)
     build.LAUNCHES[INT4] += 1
@@ -511,16 +596,26 @@ def paged_ragged_attention(
                 or x.device != q.device or not x.is_contiguous()):
             raise ValueError(f"{RAGGED}: {name} must be contiguous int32 "
                              f"{list(shape)} on q's device")
+    _aligned(RAGGED, (("q", q), ("k_slab", k_slab), ("v_slab", v_slab)),
+             16)
     lib = _library(RAGGED_SOURCE)
     out = torch.empty_like(q)
+    if r == 0:
+        return out
+    hkv = k_slab.shape[1]
+    stream = _stream(q)
+    chunk, chunks, segments, part, counter = ragged_buffers(
+        q, hkv, page_table, page_size, stream
+    )
     err = lib.bb_paged_ragged_attention(
         q.data_ptr(), k_slab.data_ptr(), v_slab.data_ptr(),
         page_table.data_ptr(), lens.data_ptr(), q_seq.data_ptr(),
         q_pos.data_ptr(), None if nt is None else nt.data_ptr(),
         None if tree_rows is None else tree_rows.data_ptr(), out.data_ptr(),
-        r, b, h, k_slab.shape[1], hd, page_table.shape[1], page_size,
-        int(window), 0 if tree_rows is None else tree_rows.shape[1],
-        _scale(scale, hd), _DTYPES[q.dtype], _stream(q),
+        part.data_ptr(), counter.data_ptr(),
+        r, b, h, hkv, hd, page_table.shape[1], page_size, int(window),
+        0 if tree_rows is None else tree_rows.shape[1], chunk, chunks,
+        segments, _scale(scale, hd), _DTYPES[q.dtype], stream,
     )
     build.check(err, RAGGED)
     build.LAUNCHES[RAGGED] += 1

@@ -4,8 +4,9 @@
     python3 chip_smoke.py            # all phases, one CUDA device
     python3 chip_smoke.py --quick    # phases 1-2 only (build + kernel checks)
     python3 chip_smoke.py --profile  # all phases + torch.profiler breakdowns
-                                     # (decode, ragged and int4 decode
-                                     # steps, a prefill chunk)
+                                     # (decode, ragged mixed and tree and
+                                     # int4 decode steps, 4 solo tree
+                                     # verifies, a prefill chunk)
 
 Phases:
 1. Build the five CUDA kernels from `bloombee_tpu_torch/ops/cuda/csrc/`
@@ -17,12 +18,14 @@ Phases:
    sliding window, a lens=0 row, a tree-mode chunk, ragged causal and tree
    mixes with padding rows, and int4 decode, plus small cases of every
    other compiled geometry (hd 64; GQA groups 1, 2, 8), and the edge cases
-   of the flash and split decode kernels (`phase_kernels_edges`). Times
-   each kernel, its plain version and (flash) the library call computing
-   the same function, with CUDA events after warmup, launches queued
-   behind a device sleep so the time is the device's (`cuda_ms`); also
-   host-paced, decode with a cold L2, flash at both prefill-chunk shapes
-   and in f32.
+   of the flash, split decode, int4 decode and ragged kernels
+   (`phase_kernels_edges`; the split kernels' cases launched twice, equal
+   bit for bit). Times each kernel, its plain version and (flash) the
+   library call computing the same function, with CUDA events after
+   warmup, launches queued behind a device sleep so the time is the
+   device's (`cuda_ms`); also host-paced, decode and int4 decode with a
+   cold L2, flash at both prefill-chunk shapes and in f32, ragged at the
+   mixed and the tree step's shapes.
 3. The executor's path in f32 (TF32 off) at full Llama-3-8B width, 4
    layers, random weights from a seeded generator: a 1000-token prefill of
    batch 2, 8 greedy decodes and a 24-token follow-up must match
@@ -88,7 +91,7 @@ SOURCE_OF = {
     "paged_decode_attention": "paged_decode",
     "paged_chunk_attention": "paged_attention",
     "paged_ragged_attention": "paged_ragged",
-    "paged_decode_attention_int4": "paged_attention",
+    "paged_decode_attention_int4": "paged_decode",
 }
 
 
@@ -231,8 +234,9 @@ def ptxas_report(log: str) -> list[tuple[str, str]]:
                              capture_output=True, text=True)
         names = out.stdout.splitlines()
         if len(names) == len(rows):
-            rows = [(n.replace("(anonymous namespace)::", "").split("(")[0],
-                     r) for n, (_, r) in zip(names, rows)]
+            rows = [(n.replace("(anonymous namespace)::", "")
+                     .replace("(int)", "").split("(")[0], r)
+                    for n, (_, r) in zip(names, rows)]
     return rows
 
 
@@ -550,7 +554,9 @@ def time_decode(gen) -> tuple[tuple, dict]:
 
 
 def phase_kernels_edges(gen, dtype, check):
-    """Phase 2 edge cases of the flash kernel and the split decode kernel.
+    """Phase 2 edge cases of the flash kernel and the split decode kernels
+    (bf16/f32 here; int4 in `int4_edges`) and of the split ragged kernel
+    (`ragged_edges`).
 
     Flash: T=100 and S=150 (not multiples of the 64-query and 64-key
     tiles), starts 37 and 13 (off a tile edge), lens 137 (inside the last
@@ -614,6 +620,150 @@ def phase_kernels_edges(gen, dtype, check):
           f"B=1 lens=8000 ({chunks} chunks of {chunk})",
           pa.paged_decode_attention(*args),
           pa.paged_decode_attention_reference(*args))
+    int4_edges(gen, dtype, check, zeros)
+    ragged_edges(gen, dtype, check, zeros)
+
+
+def twice(name, dtype, case, check, launch, want):
+    """Launch a split kernel twice in a row (the second finds the counters
+    the first reset): both within the limit of the plain result, and equal
+    bit for bit."""
+    import torch
+
+    first, second = launch(), launch()
+    check(name, dtype, case, first, want)
+    check(name, dtype, case + " 2nd launch", second, want)
+    if not torch.equal(first, second):
+        raise AssertionError(f"{name} {case}: launches disagree")
+    return first
+
+
+def int4_edges(gen, dtype, check, zeros):
+    """Phase 2 edge cases of the int4 decode kernel, as decode's: lens 1,
+    15, 16, 17, one chunk + 1, 0 (exact zeros), the table's full capacity
+    and 1000, without and with a window that starts mid-chunk, each
+    launched twice; B=1 over 8000 tokens; hd 64 at g = 1, 2 and 8."""
+    import torch
+
+    from bloombee_tpu_torch.kv.quant import quantize
+    from bloombee_tpu_torch.ops.cuda import paged_attention as pa
+
+    name = "paged_decode_attention_int4"
+    i32 = dict(dtype=torch.int32, device="cuda")
+    ks, vs = (quantize(x) for x in _arena(gen, torch.float32, 1024))
+    pt = _page_table(gen, 8, 64, 1024)
+    chunk, chunks = pa.decode_split(64, PS, 8, HKV)
+    lens = torch.tensor([1, 15, 16, 17, chunk + 1, 0, 64 * PS, 1000], **i32)
+    qd = _unit(gen, (8, H, HD), dtype)
+    mid = 1000 - (2 * chunk + chunk // 2)  # row 7's window starts mid-chunk
+    for window in (0, mid):
+        case = (f"lens {lens.tolist()} ({chunks} chunks of {chunk}) "
+                f"window={window}")
+        args = (qd, ks, vs, pt, lens, PS, None, window)
+        got = twice(name, dtype, case, check,
+                    lambda: pa.paged_decode_attention_int4(*args),
+                    pa.paged_decode_attention_int4_reference(*args))
+        zeros(name, case, got[5])
+    ks, vs = (quantize(x) for x in _arena(gen, torch.float32, 512))
+    pt = _page_table(gen, 1, 500, 512)
+    chunk, chunks = pa.decode_split(500, PS, 1, HKV)
+    args = (_unit(gen, (1, H, HD), dtype), ks, vs, pt,
+            torch.tensor([8000], **i32), PS, None, 0)
+    check(name, dtype, f"B=1 lens=8000 ({chunks} chunks of {chunk})",
+          pa.paged_decode_attention_int4(*args),
+          pa.paged_decode_attention_int4_reference(*args))
+    for h, hkv in ((8, 8), (16, 8), (16, 2)):
+        kq, vq = (quantize(_unit(gen, (256 * PS, hkv, 64), torch.float32))
+                  for _ in range(2))
+        pt = _page_table(gen, 3, 80, 256)
+        ln = torch.tensor([1200, 7, 0], **i32)
+        args = (_unit(gen, (3, h, 64), dtype), kq, vq, pt, ln, PS, None, 0)
+        check(name, dtype, f"hd=64 H={h} Hkv={hkv} lens {ln.tolist()}",
+              pa.paged_decode_attention_int4(*args),
+              pa.paged_decode_attention_int4_reference(*args))
+
+
+def ragged_edges(gen, dtype, check, zeros):
+    """Phase 2 edge cases of the split ragged kernel, each launched twice
+    (bit for bit): at Llama-3-8B heads (segments of at most 16 rows) runs
+    of 1, 3, 8 and 24 rows, the 24-row run crossing two row-tile
+    boundaries, a lens=0 row and padding rows, causal without and with a
+    window that starts mid-chunk; the same runs at g = 1 (segments of up
+    to 64 rows, all four runs in one row tile); tree rows (3 x 8 over
+    prefixes of 3000, 100 and 1500 tokens, a 1-row member, a lens=0 row,
+    padding); and the causal and tree cases with their rows shuffled, so
+    that one sequence's rows interleave with others' and padding rows sit
+    between members (more segments than the planned grid: its last CTAs
+    walk the rest)."""
+    import torch
+
+    from bloombee_tpu_torch.ops.cuda import paged_attention as pa
+
+    name = "paged_ragged_attention"
+    i32 = dict(dtype=torch.int32, device="cuda")
+    runs = (1, 3, 8, 24)
+    lens = torch.tensor([1000, 40, 700, 2000, 0, 5], **i32)
+    q_seq = torch.cat([torch.full((n,), s, **i32) for s, n in enumerate(runs)]
+                      + [torch.tensor([4, 7, 7, 7], **i32)])
+    q_pos = torch.cat([torch.arange(int(lens[s]) - n, int(lens[s]), **i32)
+                       for s, n in enumerate(runs)]
+                      + [torch.zeros((4,), **i32)])
+    dead = [36, 37, 38, 39]  # the lens=0 row and the padding rows
+    for h, hkv in ((H, HKV), (8, 8)):
+        ks = _unit(gen, (1024 * PS, hkv, HD), dtype)
+        vs = _unit(gen, (1024 * PS, hkv, HD), dtype)
+        pt = _page_table(gen, 6, 128, 1024)
+        chunk, chunks, _ = pa.ragged_split(128, PS, 40, hkv, h // hkv, 6)
+        mid = 300 if (2000 - 300) % chunk else 301  # row 35's window
+        for window in (0, mid):
+            case = (f"H={h} Hkv={hkv} runs {runs} + lens=0 + 3 padding "
+                    f"(segments of <= {pa.RAGGED_ROWS * hkv // h} rows, "
+                    f"{chunks} chunks of {chunk}) window={window}")
+            args = (_unit(gen, (40, h, HD), dtype), ks, vs, pt, lens, q_seq,
+                    q_pos, PS, None, window)
+            got = twice(name, dtype, case, check,
+                        lambda: pa.paged_ragged_attention(*args),
+                        pa.paged_ragged_attention_reference(*args))
+            zeros(name, case, got[dead])
+        if h == H:  # the same rows shuffled
+            perm = torch.randperm(40, generator=gen, device="cuda")
+            args = (_unit(gen, (40, h, HD), dtype), ks, vs, pt, lens,
+                    q_seq[perm].contiguous(), q_pos[perm].contiguous(), PS,
+                    None, mid)
+            case = f"H={h} Hkv={hkv} the causal rows shuffled, window={mid}"
+            got = twice(name, dtype, case, check,
+                        lambda: pa.paged_ragged_attention(*args),
+                        pa.paged_ragged_attention_reference(*args))
+            zeros(name, case, got[torch.argsort(perm)[dead]])
+
+    prefix = torch.tensor([3000, 100, 1500, 600], **i32)
+    nt = torch.tensor([8, 8, 8, 1, 0], **i32)
+    lens = torch.cat([prefix + nt[:4], torch.zeros((1,), **i32)])
+    tree_rows = torch.zeros((32, 8), **i32)
+    for s in range(3):
+        tree_rows[8 * s:8 * s + 8] = _tree(8, gen).to(torch.int32).cuda()
+    tree_rows[24, 0] = 1
+    q_seq = torch.tensor([0] * 8 + [1] * 8 + [2] * 8 + [3, 4] + [9] * 6,
+                         **i32)
+    ks, vs = _arena(gen, dtype, 1536)
+    pt = _page_table(gen, 5, 256, 1536)
+    args = (_unit(gen, (32, H, HD), dtype), ks, vs, pt, lens, q_seq,
+            torch.zeros((32,), **i32), PS)
+    tree = dict(nt=nt, tree_rows=tree_rows)
+    case = "tree 3 x 8 rows over 3000/100/1500 + 1-row member + lens=0 + pad"
+    got = twice(name, dtype, case, check,
+                lambda: pa.paged_ragged_attention(*args, **tree),
+                pa.paged_ragged_attention_reference(*args, **tree))
+    zeros(name, case, got[25:])
+    perm = torch.randperm(32, generator=gen, device="cuda")
+    args = (args[0][perm].contiguous(), *args[1:5],
+            q_seq[perm].contiguous(), *args[6:])
+    tree = dict(nt=nt, tree_rows=tree_rows[perm].contiguous())
+    case = "tree rows shuffled"
+    got = twice(name, dtype, case, check,
+                lambda: pa.paged_ragged_attention(*args, **tree),
+                pa.paged_ragged_attention_reference(*args, **tree))
+    zeros(name, case, got[torch.argsort(perm)[25:]])
 
 
 def ragged_mix(gen, dtype, window_case: bool):
@@ -683,11 +833,50 @@ def phase_kernels_ragged_int4(gen, dtype, check):
               pa.paged_decode_attention_int4_reference(*args))
 
 
+def ragged_mixed_shape(gen, ks, vs):
+    """The ragged kernel's args at the serving mixed step's shape: 4
+    decode rows at 1057/1033 tokens + a fresh session's 32-token chunk +
+    28 padding rows (R bucket 64), the executor's 128-page bucket."""
+    import torch
+
+    i32 = dict(dtype=torch.int32, device="cuda")
+    lens = torch.tensor([1057, 1033, 1033, 1033, 32], **i32)
+    q_seq = torch.tensor([0, 1, 2, 3] + [4] * 32 + [5] * 28, **i32)
+    q_pos = torch.cat([
+        lens[:4] - 1, torch.arange(32, **i32), torch.zeros((28,), **i32)
+    ])
+    pt = _page_table(gen, 5, 128, 1024)
+    q = _unit(gen, (64, H, HD), torch.bfloat16)
+    return (q, ks, vs, pt, lens, q_seq, q_pos, PS, HD**-0.5, 0)
+
+
+def ragged_tree_shape(gen, ks, vs):
+    """The ragged kernel's args at the serving tree step's shape: 4
+    sessions x 8 tree rows (t_max 8) over 1056/1032-token prefixes, the
+    executor's 128-page bucket."""
+    import torch
+
+    i32 = dict(dtype=torch.int32, device="cuda")
+    lens = torch.tensor([1064, 1040, 1040, 1040], **i32)
+    trees = [_tree(8, gen) for _ in range(4)]
+    tree_rows = torch.cat(trees).to(torch.int32).cuda()
+    depths = torch.cat([t.sum(-1) - 1 for t in trees]).to(torch.int32).cuda()
+    q_seq = torch.arange(4, **i32).repeat_interleave(8)
+    q_pos = (lens - 8).repeat_interleave(8) + depths
+    pt = _page_table(gen, 4, 128, 1024)
+    q = _unit(gen, (32, H, HD), torch.bfloat16)
+    nt = torch.full((4,), 8, **i32)
+    args = (q, ks, vs, pt, lens, q_seq, q_pos, PS, HD**-0.5, 0)
+    return args, dict(nt=nt, tree_rows=tree_rows)
+
+
 def time_ragged_int4(gen, extra) -> list[tuple]:
     """bf16 times of the ragged and int4 kernels at the serving run's
     shapes (phase 4): the ragged step of 4 decode rows at ~1.05k tokens +
-    a fresh session's 32-token chunk (R bucket 64), and int4 decode of 4
-    sessions at 1001 tokens; each one's host-paced time into `extra`."""
+    a fresh session's 32-token chunk (R bucket 64; the row's own time),
+    the ragged tree step of 4 x 8 tree rows (`tree_*` keys), and int4
+    decode of 4 sessions at 1001 tokens (warm; cold L2 and host-paced
+    into `extra`)."""
     import torch
 
     from bloombee_tpu_torch.kv.quant import quantize
@@ -699,17 +888,11 @@ def time_ragged_int4(gen, extra) -> list[tuple]:
     rows = []
 
     ks, vs = _arena(gen, dt, 1024)
-    lens = torch.tensor([1057, 1033, 1033, 1033, 32], **i32)
-    q_seq = torch.tensor([0, 1, 2, 3] + [4] * 32 + [5] * 28, **i32)
-    q_pos = torch.cat([
-        lens[:4] - 1, torch.arange(32, **i32), torch.zeros((28,), **i32)
-    ])
-    pt = _page_table(gen, 5, 128, 1024)
-    q = _unit(gen, (64, H, HD), dt)
-    args = (q, ks, vs, pt, lens, q_seq, q_pos, PS, scale, 0)
+    args = ragged_mixed_shape(gen, ks, vs)
+    q, pt, lens, q_seq, q_pos = (args[i] for i in (0, 3, 4, 5, 6))
     ms = cuda_ms(lambda: pa.paged_ragged_attention(*args))
     plain = cuda_ms(lambda: pa.paged_ragged_attention_reference(*args))
-    extra["paged_ragged_attention"] = {"host_paced_ms": cuda_ms(
+    ragged = extra["paged_ragged_attention"] = {"host_paced_ms": cuda_ms(
         lambda: pa.paged_ragged_attention(*args), host_paced=True
     )}
     kv_rows = int(lens[:4].sum()) + 32  # each member's visible rows, once
@@ -721,6 +904,20 @@ def time_ragged_int4(gen, extra) -> list[tuple]:
     )
     rows.append(("paged_ragged_attention", ms, plain, b_ms, by, None))
 
+    args, tree = ragged_tree_shape(gen, ks, vs)
+    q, lens, pt = args[0], args[4], args[3]
+    ragged["tree_ms"] = cuda_ms(lambda: pa.paged_ragged_attention(
+        *args, **tree))
+    ragged["tree_plain_ms"] = cuda_ms(
+        lambda: pa.paged_ragged_attention_reference(*args, **tree))
+    prefix = int((lens - 8).sum())  # each sequence's prefix, read once
+    vis = int(tree["tree_rows"].sum())  # visible in-step (row, key) pairs
+    ragged["tree_bound_ms"], ragged["tree_bound_by"] = bound(
+        2 * (prefix + 32) * HKV * HD * 2 + nbytes(q, q, lens, *tree.values())
+        + nbytes(args[5], args[6], pt[:, :67]),
+        4 * (8 * prefix + vis) * H * HD, dt,
+    )
+
     kq, vq = quantize(ks), quantize(vs)
     lens = torch.full((4,), 1001, **i32)
     pt = _page_table(gen, 4, 64, 1024)
@@ -728,9 +925,12 @@ def time_ragged_int4(gen, extra) -> list[tuple]:
     args = (qd, kq, vq, pt, lens, PS, scale, 0)
     ms = cuda_ms(lambda: pa.paged_decode_attention_int4(*args))
     plain = cuda_ms(lambda: pa.paged_decode_attention_int4_reference(*args))
-    extra["paged_decode_attention_int4"] = {"host_paced_ms": cuda_ms(
-        lambda: pa.paged_decode_attention_int4(*args), host_paced=True
-    )}
+    extra["paged_decode_attention_int4"] = {
+        "cold_ms": cuda_ms_cold(
+            lambda: pa.paged_decode_attention_int4(*args)),
+        "host_paced_ms": cuda_ms(
+            lambda: pa.paged_decode_attention_int4(*args), host_paced=True),
+    }
     kv_rows = 4 * 1001
     per_row = HD // 2 + 2 * (HD // 32) * 2  # codes + f16 scale and zero
     b_ms, by = bound(
@@ -1102,8 +1302,7 @@ def serving_ragged(ex, manager, sessions, fresh, client, gen, outs):
     dispatched separately. Every step is rewound after it runs. Returns
     the median times, the launch counts of the fused steps ("ragged") and
     of the separately dispatched yardstick ("ragged_yardstick"), each set
-    to 0 just before its steps run, and a function running one fused step
-    (profiling)."""
+    to 0 just before its steps run, and the steps by name (profiling)."""
     import collections
 
     import torch
@@ -1170,7 +1369,8 @@ def serving_ragged(ex, manager, sessions, fresh, client, gen, outs):
         "tree_s": timed(tree, "ragged"),
         "tree_separate_s": timed(tree_separate, "ragged_yardstick"),
     }
-    return stats, {k: dict(v) for k, v in launches.items()}, mixed
+    steps = {"mixed": mixed, "tree": tree, "tree_separate": tree_separate}
+    return stats, {k: dict(v) for k, v in launches.items()}, steps
 
 
 def arena_gib(manager) -> float:
@@ -1346,7 +1546,7 @@ def phase_serving(profile: bool = False) -> dict[str, dict]:
             torch.cuda.synchronize()
             stats["launches"]["serving"] = dict(build.LAUNCHES)
 
-            ragged, ragged_launches, mixed_step = serving_ragged(
+            ragged, ragged_launches, ragged_steps = serving_ragged(
                 ex, manager, handles, fresh, client, gen, outs
             )
             stats["launches"].update(ragged_launches)
@@ -1358,7 +1558,11 @@ def phase_serving(profile: bool = False) -> dict[str, dict]:
                 profiled("4 decode_group steps (4 sessions)",
                          lambda: [decode_step() for _ in range(4)])
                 profiled("one ragged step (4 decode rows + a 32-token "
-                         "chunk)", mixed_step)
+                         "chunk)", ragged_steps["mixed"])
+                profiled("one tree ragged step (4 x 8-node trees)",
+                         ragged_steps["tree"])
+                profiled("4 solo tree verifies (the tree step's yardstick)",
+                         ragged_steps["tree_separate"])
                 extra = torch.randint(
                     0, spec.vocab_size, (1, 512), generator=gen,
                     device="cuda",
@@ -1437,8 +1641,9 @@ def main() -> int:
     parser.add_argument(
         "--profile", action="store_true",
         help="after each serving path (and its launch counts), trace 4 "
-        "more decode steps, one ragged step, one prefill chunk and 4 int4 "
-        "decode steps with torch.profiler and print where the time goes",
+        "more decode steps, a mixed and a tree ragged step, 4 solo tree "
+        "verifies, one prefill chunk and 4 int4 decode steps with "
+        "torch.profiler and print where the time goes",
     )
     args = parser.parse_args()
     import torch
