@@ -31,34 +31,23 @@
 //   the grid, one after another. A CTA past the last segment leaves at once.
 //   The rows of a segment share every K/V tile it reads: a tree step's 8
 //   rows read their prefix once, not 8 times, and decode rows of different
-//   sequences run in parallel CTAs, not one after another. A CTA whose
-//   chunk lies outside its rows' visible keys (chunk rows of a short
-//   prefill, padding rows, lens 0) reads nothing and stores empty states.
-// - K/V rows are staged whole with cp.async in a 2-stage ring of 64-key
-//   tiles (32 in f32). In bf16 every segment runs on the tensor cores
-//   (mma.sync m16n8k16), the 4 warps split over its row blocks of 16 query
-//   rows and then over the tile's keys (one decode row: 4 warps of 16
-//   keys each, agreeing on one max per row and tile through shared
-//   memory), P.V fed P as two bf16 terms (hi + lo: one term misses the
-//   per-element limit on rows with few keys). f32 runs on the CUDA cores
-//   (every lane whole keys, one max and one sum per row and tile).
-// - Each CTA stores (m, l, acc) per query row in f32; the last CTA of each
-//   (segment, KV head), counted by an atomic counter (one per first row of
-//   a segment and KV head) that it resets to 0, merges the chunks in the
-//   same launch and writes the output.
+//   sequences run in parallel CTAs, not one after another.
+// - A segment is a unit of paged_rows.cuh's `attend_unit`, which the chunk
+//   kernel (paged_attention.cu) runs too: its keys of a chunk staged whole
+//   with cp.async, bf16 on the tensor cores (`MmaBody` below: mma.sync
+//   m16n8k16, 1, 2 or 4 warps per 16 query rows, P as hi + lo bf16
+//   terms), f32 on the CUDA cores (`CoreBody`), the chunks merged by the last
+//   CTA of each (segment, KV head) in the same launch, counted by one
+//   counter per first row of a segment and KV head. A segment of padding
+//   rows or of a lens 0 sequence reads nothing: exact zeros, no merge.
 
-#include <climits>
+#include <type_traits>
 
-#include "paged_split.cuh"
+#include "paged_rows.cuh"
 
 namespace {
 
 using namespace bbsplit;
-
-constexpr int QROWS = 64;  // query rows (rows x g) of one KV head per CTA
-// the most chunks: the merge keeps 2 * QROWS * MAX_CHUNKS f32 weights and
-// sums in the ring (`paged_attention.RAGGED_MAX_CHUNKS` plans no more)
-constexpr int MAX_CHUNKS = 64;
 
 __device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p,
                                         bool trans) {
@@ -308,18 +297,64 @@ struct Mma {
   }
 };
 
-// Shared memory: the ring, then the query rows: bf16 (tensor cores) qm
-// [QROWS][HD + 8] bf16; f32 (CUDA cores) qs [QROWS][HD], ps [QROWS][TK],
-// cs [QROWS] f32.
-template <typename T, int HD>
-__host__ __device__ constexpr size_t ragged_smem_bytes() {
+// The bf16 tile body over DenseStage's padded rows: the unit's query rows
+// in qm [QROWS][HD + 8] bf16 after the ring (rows past nq zeros, to a
+// multiple of 16), 4, 2 or 1 warps per block of 16 query rows as nq asks,
+// and the ring as the store's scratch.
+template <int HD>
+struct MmaBody {
+  using T = __nv_bfloat16;
   using S = DenseStage<T, HD>;
-  static_assert(2 * QROWS * MAX_CHUNKS * sizeof(float) <= S::BYTES,
-                "the merge's weights fit in the ring");
-  return S::BYTES + (sizeof(T) == 2
-                         ? 2 * QROWS * (HD + 8)
-                         : sizeof(float) * QROWS * (HD + S::TK + 1));
-}
+  T* qm;
+  float* scratch;
+  float scale;
+  int nq = 0, ks = 1;
+  Mma<HD> mma;
+
+  __device__ MmaBody(const S&, unsigned char* smem_raw, float scale_)
+      : qm(reinterpret_cast<T*>(smem_raw + S::BYTES)),
+        scratch(reinterpret_cast<float*>(smem_raw)),
+        scale(scale_) {}
+  __device__ static float* red() {  // [4][QROWS]: the warps' row maxima
+    __shared__ float r[4 * QROWS];
+    return r;
+  }
+  // The unit's nq query rows, row qr at q_row(qr), as cp.async copies
+  // (committed with the first K/V tile). All threads call this.
+  template <class QRow>
+  __device__ void load_q(QRow q_row, int nq_) {
+    nq = nq_;
+    const int pad = (nq + 15) / 16 * 16;
+    ks = pad == 16 ? 4 : pad == 32 ? 2 : 1;
+    for (int i = threadIdx.x; i < pad * (HD / 8); i += SNT) {
+      const int qr = i / (HD / 8), piece = i % (HD / 8);
+      const T* src = q_row(qr < nq ? qr : 0) + piece * 8;  // past nq: zeros
+      bbasync::copy16(qm + qr * (HD + 8) + piece * 8, src, qr < nq);
+    }
+    mma.init();
+  }
+  __device__ void staged() {}
+  // One staged tile of nk keys; on a `full` tile every row sees every key.
+  template <class Vis>
+  __device__ void tile(const T* kt, const T* vt, int nk, bool full,
+                       Vis vis) {
+    auto v = [&](int qr, int key) { return full || vis(qr, key); };
+    if (ks == 4)
+      mma.template tile<4, S::LD, S::TK>(kt, vt, qm, nq, nk, scale, v, red());
+    else if (ks == 2)
+      mma.template tile<2, S::LD, S::TK>(kt, vt, qm, nq, nk, scale, v, red());
+    else
+      mma.template tile<1, S::LD, S::TK>(kt, vt, qm, nq, nk, scale, v, red());
+  }
+  __device__ void store(float* acc_out, float2* ml_out) {
+    if (ks == 4)
+      mma.template store<4>(acc_out, ml_out, nq, scratch);
+    else if (ks == 2)
+      mma.template store<2>(acc_out, ml_out, nq, scratch);
+    else
+      mma.template store<1>(acc_out, ml_out, nq, scratch);
+  }
+};
 
 template <typename T, int HD, int G>
 __global__ void __launch_bounds__(SNT)
@@ -336,17 +371,13 @@ __global__ void __launch_bounds__(SNT)
                   int* __restrict__ counter,           // [R * HKV], zero
                   int R, int B, int HKV, int NP, int page_size, int window,
                   int t_max, int chunk, float scale) {
-  using S = DenseStage<T, HD>;
-  constexpr int TK = S::TK, LD = S::LD;
   constexpr int TR = QROWS / G;  // the most rows of a segment
-  constexpr bool MMA = sizeof(T) == 2;  // bf16: tensor cores
+  // bf16 on the tensor cores, f32 on the CUDA cores
+  using Body =
+      std::conditional_t<sizeof(T) == 2, MmaBody<HD>, CoreBody<T, HD>>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   st.bind(smem_raw);
-  float* qs = reinterpret_cast<float*>(smem_raw + S::BYTES);  // [QROWS][HD]
-  float* ps = qs + QROWS * HD;  // [QROWS][TK]
-  float* cs = ps + QROWS * TK;  // [QROWS]
-  __nv_bfloat16* qm =  // [QROWS][HD + 8]
-      reinterpret_cast<__nv_bfloat16*>(smem_raw + S::BYTES);
+  Body body(st, smem_raw, scale);
   // per row of the segment: visible keys [lo, hi), in-step keys from ss
   // on (tree mode)
   __shared__ int r_lo[TR], r_hi[TR], r_ss[TR];
@@ -354,11 +385,9 @@ __global__ void __launch_bounds__(SNT)
   __shared__ float total[QROWS];  // the merge's per-row sums
 
   const int c = blockIdx.x, kvh = blockIdx.y;
-  const int C = gridDim.x;
   const int H = HKV * G;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int cap = NP * page_size;
-  const float NEG_INF = -CUDART_INF_F;
 
   // segment z = blockIdx.z; the grid's last z goes on to every segment
   // past the grid, one after another
@@ -396,9 +425,9 @@ __global__ void __launch_bounds__(SNT)
     }
     const int i0 = seg[0], i1 = seg[1];
     if (i0 >= R) return;  // no segment z: its unit has no CTA that counts
-    const int nrows = i1 - i0, nq = nrows * G;
+    const int nrows = i1 - i0;
     const int s0 = q_seq[i0];
-    const int s = s0 < B ? s0 : -1;
+    const int s = s0 < B ? s0 : -1;  // -1: padding rows, which see no key
 
     if (tid < nrows) {
       const int i = i0 + tid;
@@ -419,130 +448,35 @@ __global__ void __launch_bounds__(SNT)
       r_ss[tid] = ss;
     }
     __syncthreads();
-    // the segment's keys in this chunk: the union of its rows' ranges;
-    // keys in [lo_all, hi_all) are visible to every row
-    int lo = INT_MAX, hi = 0, lo_all = 0, hi_all = INT_MAX;
-    for (int r = 0; r < nrows; ++r) {
-      if (r_lo[r] < r_hi[r]) {
-        lo = min(lo, r_lo[r]);
-        hi = max(hi, r_hi[r]);
-      }
-      lo_all = max(lo_all, r_lo[r]);
-      hi_all = min(hi_all, min(r_hi[r], r_ss[r]));
-    }
-    lo = max(lo, c * chunk);
-    hi = min(hi, (c + 1) * chunk);
-    const int n = s >= 0 ? max(hi - lo, 0) : 0;
-    const int ntiles = (n + TK - 1) / TK;
-    const int* pt = page_table + (size_t)max(s, 0) * NP;
-
-    auto load = [&](int t) {
-      st.load(t & 1, n - t * TK, kvh, [&](int r) {
-        const int pos = lo + t * TK + r;
-        return pt[pos / page_size] * page_size + pos % page_size;
-      });
-    };
-    if (ntiles > 0) load(0);
-    bbasync::commit();
 
     // part: acc [HKV, C, R * G, HD] then (m, l) [HKV, C, R * G]; the
     // unit's rows start at query row i0 * G
+    const int C = gridDim.x;
     const size_t RQ = (size_t)R * G;
     float* const acc_all =
         part + (size_t)kvh * C * RQ * HD + (size_t)i0 * G * HD;
     float2* const ml_all = reinterpret_cast<float2*>(
         part + (size_t)HKV * C * RQ * HD) + (size_t)kvh * C * RQ + i0 * G;
-    float* const acc_c = acc_all + (size_t)c * RQ * HD;
-    float2* const ml_c = ml_all + (size_t)c * RQ;
-
-    const T* qb = q + ((size_t)i0 * H + kvh * G) * HD;
-    if (s < 0) {  // padding rows: exact zeros, written once, no merge
-      if (c == 0)
-        for (int i = tid; i < nq * HD; i += SNT)
-          out[((size_t)(i0 + i / (G * HD)) * H + kvh * G) * HD +
-              i % (G * HD)] = from_f<T>(0.f);
-      continue;
-    }
-    if (ntiles == 0) {  // no key of the chunk: an empty state per query row
-      for (int i = tid; i < nq; i += SNT) ml_c[i] = make_float2(NEG_INF, 0.f);
-    }
-
-    // the chunk's tiles, each handed to body(kt, vt, nk, vis) once staged
-    auto walk = [&](auto&& body) {
-      for (int t = 0; t < ntiles; ++t) {
-        if (t + 1 < ntiles) load(t + 1);
-        bbasync::commit();
-        bbasync::wait<1>();  // tile t
-        __syncthreads();
-        const int kbase = lo + t * TK, nk = min(TK, n - t * TK);
-        const bool full = kbase >= lo_all && kbase + nk <= hi_all;
-        auto vis = [&](int qr, int key) {
-          if (full) return true;  // every row sees the whole tile
-          const int r = qr / G, pos = kbase + key;
-          if (pos < r_lo[r] || pos >= r_hi[r]) return false;
-          const int m = pos - r_ss[r];  // in-step key: the tree row decides
-          return m < 0 ||
-                 (m < t_max && tree_rows[(size_t)(i0 + r) * t_max + m] != 0);
-        };
-        body(st.keys(t & 1), st.values(t & 1), nk, vis);
-        __syncthreads();  // stage t & 1 and ps are refilled next
-      }
-      bbasync::wait<0>();
+    auto out_row = [&](int qr) {
+      return out + ((size_t)(i0 + qr / G) * H + kvh * G + qr % G) * HD;
     };
-
-    if (ntiles > 0) {
-      if constexpr (MMA) {
-        const int pad = (nq + 15) / 16 * 16;
-        for (int i = tid; i < pad * (HD / 8); i += SNT) {
-          const int qr = i / (HD / 8), piece = i % (HD / 8);
-          uint4 x = make_uint4(0, 0, 0, 0);
-          if (qr < nq)
-            x = *reinterpret_cast<const uint4*>(
-                qb + ((size_t)(qr / G) * H + qr % G) * HD + piece * 8);
-          *reinterpret_cast<uint4*>(qm + qr * (HD + 8) + piece * 8) = x;
-        }
-        // warps per row block: 4 for one block of 16 query rows, 2 for two
-        const int ks = pad == 16 ? 4 : pad == 32 ? 2 : 1;
-        __shared__ float red[4 * QROWS];
-        Mma<HD> mma;
-        mma.init();
-        walk([&](const T* kt, const T* vt, int nk, auto&& vis) {
-          if (ks == 4)
-            mma.template tile<4, LD, TK>(kt, vt, qm, nq, nk, scale, vis, red);
-          else if (ks == 2)
-            mma.template tile<2, LD, TK>(kt, vt, qm, nq, nk, scale, vis, red);
-          else
-            mma.template tile<1, LD, TK>(kt, vt, qm, nq, nk, scale, vis, red);
-        });
-        float* scratch = reinterpret_cast<float*>(smem_raw);  // the ring
-        if (ks == 4)
-          mma.template store<4>(acc_c, ml_c, nq, scratch);
-        else if (ks == 2)
-          mma.template store<2>(acc_c, ml_c, nq, scratch);
-        else
-          mma.template store<1>(acc_c, ml_c, nq, scratch);
-      } else {  // f32, CUDA cores: the query rows scaled, in qs
-        for (int i = tid; i < nq * HD; i += SNT) {
-          const int qr = i / HD, d = i % HD;
-          qs[i] = to_f(qb[((size_t)(qr / G) * H + qr % G) * HD + d]) * scale;
-        }
-        Core<T, HD, QROWS, TK> core;
-        core.init();
-        walk([&](const T* kt, const T* vt, int nk, auto&& vis) {
-          core.template tile<LD>(kt, vt, qs, ps, cs, nq, nk, vis);
-        });
-        core.store(acc_c, ml_c, nq);
-      }
-    }
-
-    if (!arrive_last(counter + (size_t)i0 * HKV + kvh, C)) continue;
+    const bool stored = attend_unit<T, HD, G>(
+        q + ((size_t)i0 * H + kvh * G) * HD, H, st, body,
+        page_table + (size_t)max(s, 0) * NP, page_size, kvh, nrows, r_lo,
+        r_hi, r_ss,
+        [&](int r, int m) {  // the m-th in-step key: the tree row decides
+          return m < t_max && tree_rows[(size_t)(i0 + r) * t_max + m] != 0;
+        },
+        [&](int, int) { return make_int2(c * chunk, (c + 1) * chunk); },
+        c == 0, acc_all + (size_t)c * RQ * HD, ml_all + (size_t)c * RQ,
+        out_row);
+    if (!stored || !arrive_last(counter + (size_t)i0 * HKV + kvh, C))
+      continue;
     // the ring's shared memory holds the 2 * nq * C chunk weights and sums
     // (nq <= QROWS, C <= MAX_CHUNKS)
-    merge_chunks<T, HD, QROWS>(
-        acc_all, ml_all, C, (int)RQ, nq, reinterpret_cast<float*>(smem_raw),
-        total, [&](int qr) {
-          return out + ((size_t)(i0 + qr / G) * H + kvh * G + qr % G) * HD;
-        });
+    merge_chunks<T, HD, QROWS>(acc_all, ml_all, C, (int)RQ, nrows * G,
+                               reinterpret_cast<float*>(smem_raw), total,
+                               out_row);
   }
 }
 
@@ -554,7 +488,7 @@ struct RaggedLaunch {
                  int* counter, int R, int B, int HKV, int NP, int page_size,
                  int window, int t_max, int chunk, int chunks, int segments,
                  float scale, cudaStream_t stream) {
-    const size_t smem = ragged_smem_bytes<T, HD>();
+    const size_t smem = rows_smem_bytes<T, HD>();
     cudaError_t err = cudaFuncSetAttribute(
         ragged_kernel<T, HD, G>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -1,5 +1,6 @@
 // Device code of the split-over-keys paged kernels (paged_decode.cu: the
-// bf16/f32 and the int4 decode kernels; paged_ragged.cu): the K/V tile
+// bf16/f32 and the int4 decode kernels; paged_ragged.cu and the chunk
+// kernel of paged_attention.cu, through paged_rows.cuh): the K/V tile
 // stagers, the CUDA-core tile body and the same-launch merge.
 //
 // A CTA owns one chunk of a sequence's keys (page-aligned, planned on the

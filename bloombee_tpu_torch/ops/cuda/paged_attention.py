@@ -1,8 +1,8 @@
 """The paged attention kernels for Hopper and their plain PyTorch versions:
-`csrc/paged_decode.cu` (decode over a dense or an int4 arena) and
-`csrc/paged_ragged.cu`, split over keys on the body of
-`csrc/paged_split.cuh`; `csrc/paged_attention.cu` (chunk, on
-`csrc/paged_common.cuh`).
+`csrc/paged_decode.cu` (decode over a dense or an int4 arena),
+`csrc/paged_ragged.cu` and `csrc/paged_attention.cu` (chunk), all split
+over keys on the body of `csrc/paged_split.cuh`, the last two through the
+row-tile body of `csrc/paged_rows.cuh`.
 
 Replaces, in bloombee_tpu/ops/pallas/paged_attention.py:
 
@@ -18,7 +18,10 @@ Replaces, in bloombee_tpu/ops/pallas/paged_attention.py:
   The step's tokens sit at [lens[b]-t_real, lens[b]). Causal mode takes an
   optional per-query window and treats query rows >= t_real as padding;
   tree mode keeps the committed prefix fully visible and lets a [T, T] tree
-  mask govern the in-step keys.
+  mask govern the in-step keys. Its kernel cuts each sequence's rows into
+  tiles of RAGGED_ROWS // g tokens that share every staged K/V tile, and
+  each tile's keys into page-aligned chunks (`chunk_split`, `chunk_range`)
+  merged within a thread block cluster.
 - `paged_ragged_attention`: R query rows spread unevenly over B sequences
   in one launch. Row i belongs to sequence q_seq[i] at position q_pos[i]
   (q_seq >= B: a padding row). Causal mode: keys at positions < lens[b]
@@ -59,13 +62,21 @@ _GROUPS = (1, 2, 4, 8)
 _libs: dict = {}
 # CTAs the split decode kernel aims for: two per SM of an H100's 132
 SPLIT_CTAS = 264
-# the ragged kernel: CTAs it aims for, and the plan's view of its limits
-# (QROWS and MAX_CHUNKS in csrc/paged_ragged.cu): the most query rows (rows
-# x g) of a segment, which sizes the grid's segment axis (too small a grid
-# stays right, only slower), and the most chunks (the kernel refuses more)
+# the ragged kernel: CTAs it aims for; it and the chunk kernel: the plan's
+# view of their limits (QROWS and MAX_CHUNKS in csrc/paged_rows.cuh): the
+# most query rows (rows x g) of a unit, which sizes the ragged grid's
+# segment axis (too small a grid stays right, only slower) and the chunk
+# kernel's row tiles, and the ragged kernel's most chunks (it refuses more)
 RAGGED_CTAS = 528
 RAGGED_ROWS = 64
 RAGGED_MAX_CHUNKS = 64
+# the chunk kernel: the most chunks per unit, its cluster size (MAX_CLUSTER
+# in csrc/paged_attention.cu: the portable cluster size, which the C entry
+# point does not exceed), and the CTAs it aims for: what one wave of its
+# clusters holds at two CTAs an SM (an H100's
+# cudaOccupancyMaxActiveClusters: 62 clusters of 4, 30 of 8)
+CHUNK_CLUSTER = 8
+CHUNK_CTAS = 240
 # per (device, stream): the split kernels' int32 counters, zeroed once when
 # allocated and shared by every split launch on that stream (launches on
 # one stream run in order); every launch leaves them at zero again
@@ -258,6 +269,7 @@ def _library(source: str):
             vp, vp, vp, vp, vp, vp, vp,  # q, k, v, page_table, lens, tree, out
             i32, i32, i32, i32, i32, i32, i32, i32, i32,  # B T H Hkv hd NP
             # ps window t_real
+            i32,  # chunks
             f32, i32, vp,  # scale, dtype, stream
         ]
         fns = (lib.bb_paged_chunk_attention,)
@@ -431,6 +443,34 @@ def ragged_buffers(q, hkv, page_table, page_size, stream):
     return chunk, chunks, segments, part, _counter(q.device, stream, r * hkv)
 
 
+def chunk_split(
+    b: int, t: int, hkv: int, group: int, num_pages: int
+) -> tuple[int, int]:
+    """The chunk kernel's plan: (chunks, tiles). Each sequence's t tokens
+    are cut into `tiles` row tiles of RAGGED_ROWS // group tokens (one unit
+    per row tile and KV head), each unit's keys into `chunks` runs of whole
+    pages (`chunk_range`, on the device): as many as keep the
+    b * tiles * hkv * chunks CTAs within CHUNK_CTAS (one wave), at least
+    one, at most CHUNK_CLUSTER (a unit's chunks are one thread block
+    cluster) and at most one per page of the table. A function of the
+    shapes alone: the host never reads lens."""
+    tiles = -(-max(t, 1) // (RAGGED_ROWS // group))
+    chunks = min(max(1, CHUNK_CTAS // (b * tiles * hkv)), CHUNK_CLUSTER,
+                 max(num_pages, 1))
+    return chunks, tiles
+
+
+def chunk_range(c: int, chunks: int, lo: int, hi: int,
+                page_size: int) -> tuple[int, int]:
+    """Keys [klo, khi) of chunk c of a unit whose rows see keys in [lo,
+    hi): the pages the range touches, cut into `chunks` runs of whole pages
+    as even as pages allow (the last runs may be short or empty). The
+    kernel's `chunk_range` (csrc/paged_attention.cu)."""
+    p0, p1 = lo // page_size, -(-hi // page_size)
+    per = -(-(p1 - p0) // chunks)
+    return (p0 + c * per) * page_size, (p0 + (c + 1) * per) * page_size
+
+
 def _aligned(kernel, named, align: int) -> None:
     """Raise unless every (name, tensor) starts on an `align`-byte
     boundary (the kernels copy rows with cp.async of that size)."""
@@ -505,14 +545,19 @@ def paged_chunk_attention(
                              "[B, T, T] on q's device")
         if window:
             raise ValueError(f"{CHUNK}: tree mode takes no window")
+    _aligned(CHUNK, (("q", q), ("k_slab", k_slab), ("v_slab", v_slab)), 16)
     lib = _library(SOURCE)
     out = torch.empty_like(q)
+    if b * t == 0:
+        return out
+    hkv = k_slab.shape[1]
+    chunks, _ = chunk_split(b, t, hkv, h // hkv, page_table.shape[1])
     err = lib.bb_paged_chunk_attention(
         q.data_ptr(), k_slab.data_ptr(), v_slab.data_ptr(),
         page_table.data_ptr(), lens.data_ptr(),
         None if tree_mask is None else tree_mask.data_ptr(), out.data_ptr(),
-        b, t, h, k_slab.shape[1], hd, page_table.shape[1], page_size,
-        int(window), int(t if t_real is None else t_real),
+        b, t, h, hkv, hd, page_table.shape[1], page_size,
+        int(window), int(t if t_real is None else t_real), chunks,
         _scale(scale, hd), _DTYPES[q.dtype], _stream(q),
     )
     build.check(err, CHUNK)

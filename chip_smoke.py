@@ -18,14 +18,15 @@ Phases:
    sliding window, a lens=0 row, a tree-mode chunk, ragged causal and tree
    mixes with padding rows, and int4 decode, plus small cases of every
    other compiled geometry (hd 64; GQA groups 1, 2, 8), and the edge cases
-   of the flash, split decode, int4 decode and ragged kernels
+   of the flash, split decode, int4 decode, ragged and chunk kernels
    (`phase_kernels_edges`; the split kernels' cases launched twice, equal
    bit for bit). Times each kernel, its plain version and (flash) the
    library call computing the same function, with CUDA events after
    warmup, launches queued behind a device sleep so the time is the
    device's (`cuda_ms`); also host-paced, decode and int4 decode with a
    cold L2, flash at both prefill-chunk shapes and in f32, ragged at the
-   mixed and the tree step's shapes.
+   mixed and the tree step's shapes, chunk at the serving path's two B=1
+   launches (warm and cold) and at PR 1-4's B=4 table shape.
 3. The executor's path in f32 (TF32 off) at full Llama-3-8B width, 4
    layers, random weights from a seeded generator: a 1000-token prefill of
    batch 2, 8 greedy decodes and a 24-token follow-up must match
@@ -50,8 +51,9 @@ Phases:
    - int4: an int4 arena, 4 sessions x 1000-token prefill (flash over the
      dequantized pages) and 32 `decode_group` steps (-> int4 decode),
      timed beside the bf16 arena's decode step.
-   Every kernel must show launches on its path, and the bf16 decode step
-   exactly one decode launch per layer.
+   Every kernel must show launches on its path, the bf16 decode step
+   exactly one decode launch per layer, and the serving path one chunk
+   launch per layer for each of its two T>1 steps.
 
 Prints the card's name and power limit, per-phase results, a
 `{"kernels": [...]}` line, and as its last line
@@ -159,6 +161,23 @@ def cuda_ms_cold(fn, iters=60) -> float:
         end.record()
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in events) / iters
+
+
+def host_us(fn, iters=50) -> float:
+    """Host microseconds per call of fn: its Python and launch cost. The
+    calls are queued behind a ~25 ms device sleep, so none waits for the
+    device."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / iters * 1e6
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
@@ -395,32 +414,13 @@ def phase_kernels() -> list[dict]:
         phase_kernels_ragged_int4(gen, dtype, check)
         phase_kernels_edges(gen, dtype, check)
 
-    # times at the serving run's bf16 shapes (phase 4): 4 sessions
-    dt = torch.bfloat16
-    scale = HD**-0.5
+    # times at the serving run's bf16 shapes (phase 4)
     extra: dict[str, dict] = {}  # per kernel: times beyond the row's own
     flash_row, extra["flash_attention"] = time_flash(gen)
     decode_row, extra["paged_decode_attention"] = time_decode(gen)
     rows = [flash_row, decode_row]
-    phys = 1024
-    ks, vs = _arena(gen, dt, phys)
-    pt = _page_table(gen, 4, 64, phys)
-
-    qc = _unit(gen, (4, 32, H, HD), dt)
-    lens = torch.full((4,), 1032, **i32)
-    args = (qc, ks, vs, pt.repeat(1, 2)[:, :65].contiguous(), lens, PS, None,
-            scale, 0, 24)
-    ms = cuda_ms(lambda: pa.paged_chunk_attention(*args))
-    plain = cuda_ms(lambda: pa.paged_chunk_attention_reference(*args))
-    extra["paged_chunk_attention"] = {"host_paced_ms": cuda_ms(
-        lambda: pa.paged_chunk_attention(*args), host_paced=True
-    )}
-    vis = 4 * sum(1032 - 24 + i + 1 for i in range(24))  # per head
-    b_ms, by = bound(
-        2 * 4 * 1032 * HKV * HD * 2 + nbytes(qc, qc, lens) + 4 * 65 * 4,
-        4 * vis * H * HD, dt,
-    )
-    rows.append(("paged_chunk_attention", ms, plain, b_ms, by, None))
+    chunk_row, extra["paged_chunk_attention"] = time_chunk(gen, check)
+    rows.append(chunk_row)
     rows += time_ragged_int4(gen, extra)
 
     out = []
@@ -553,6 +553,75 @@ def time_decode(gen) -> tuple[tuple, dict]:
     return ("paged_decode_attention", ms, plain, b_ms, by, None), extra
 
 
+def time_chunk(gen, check) -> tuple[tuple, dict]:
+    """The chunk kernel at the serving run's two launches, both B=1 over
+    the executor's 128-page bucket: the follow-up turn (q [1,32,32,128],
+    t_real 24, 1056 tokens: the row's own time) and the tree verify (q
+    [1,8,32,128], an 8-node tree, 1040 tokens; `tree_*` keys), each warm,
+    cold L2 and beside its plain version and bound; and PR 1-4's table
+    shape (q [4,32,32,128], t_real 24, 1032 tokens; `b4_*` keys), with its
+    host-paced time; and the wrapper's host time per call at each shape
+    (`*host_us`). Each shape's output is first checked against the plain
+    version's on the same inputs."""
+    import torch
+
+    from bloombee_tpu_torch.ops.cuda import paged_attention as pa
+
+    dt = torch.bfloat16
+    i32 = dict(dtype=torch.int32, device="cuda")
+    scale = HD**-0.5
+    ks, vs = _arena(gen, dt, 1024)
+    extra, row = {}, None
+    for label, b, t, t_real, length, pages, tree in (
+        ("", 1, 32, 24, 1056, 128, False),
+        ("tree_", 1, 8, 8, 1040, 128, True),
+        ("b4_", 4, 32, 24, 1032, 65, False),
+    ):
+        q = _unit(gen, (b, t, H, HD), dt)
+        pt = _page_table(gen, b, pages, 1024)
+        lens = torch.full((b,), length, **i32)
+        mask = (torch.stack([_tree(t, gen) for _ in range(b)]).cuda()
+                if tree else None)
+        args = (q, ks, vs, pt, lens, PS, mask, scale, 0, t_real)
+        check("paged_chunk_attention", dt,
+              f"timed shape q {list(q.shape)} t_real {t_real} over "
+              f"{length} tokens, {pages}-page table"
+              f"{', tree' if tree else ''}",
+              pa.paged_chunk_attention(*args),
+              pa.paged_chunk_attention_reference(*args))
+        ms = cuda_ms(lambda: pa.paged_chunk_attention(*args))
+        plain = cuda_ms(lambda: pa.paged_chunk_attention_reference(*args))
+        extra[f"{label}host_us"] = host_us(
+            lambda: pa.paged_chunk_attention(*args))
+        start = length - t_real
+        if tree:  # the prefix for every row, in-step keys by the tree
+            pairs = b * (t * start + int(mask.sum()))
+            small = nbytes(mask)
+        else:
+            pairs = b * sum(start + i + 1 for i in range(t_real))
+            small = 0
+        b_ms, by = bound(
+            2 * b * length * HKV * HD * 2 + nbytes(q, q, lens) + small
+            + b * -(-length // PS) * 4,
+            4 * pairs * H * HD, dt,
+        )
+        chunks, tiles = pa.chunk_split(b, t, HKV, H // HKV, pages)
+        extra[f"{label}split"] = (f"{b * tiles * HKV} units (row tile, KV "
+                                  f"head) x {chunks} chunks")
+        if not label:
+            row = ("paged_chunk_attention", ms, plain, b_ms, by, None)
+        else:
+            extra.update({f"{label}ms": ms, f"{label}plain_ms": plain,
+                          f"{label}bound_ms": b_ms})
+        if label != "b4_":
+            extra[f"{label}cold_ms"] = cuda_ms_cold(
+                lambda: pa.paged_chunk_attention(*args))
+        else:
+            extra["b4_host_paced_ms"] = cuda_ms(
+                lambda: pa.paged_chunk_attention(*args), host_paced=True)
+    return row, extra
+
+
 def phase_kernels_edges(gen, dtype, check):
     """Phase 2 edge cases of the flash kernel and the split decode kernels
     (bf16/f32 here; int4 in `int4_edges`) and of the split ragged kernel
@@ -622,6 +691,7 @@ def phase_kernels_edges(gen, dtype, check):
           pa.paged_decode_attention_reference(*args))
     int4_edges(gen, dtype, check, zeros)
     ragged_edges(gen, dtype, check, zeros)
+    chunk_edges(gen, dtype, check, zeros)
 
 
 def twice(name, dtype, case, check, launch, want):
@@ -764,6 +834,80 @@ def ragged_edges(gen, dtype, check, zeros):
                 lambda: pa.paged_ragged_attention(*args, **tree),
                 pa.paged_ragged_attention_reference(*args, **tree))
     zeros(name, case, got[torch.argsort(perm)[25:]])
+
+
+def chunk_edges(gen, dtype, check, zeros):
+    """Phase 2 edge cases of the split chunk kernel, each launched twice
+    (bit for bit): at Llama-3-8B heads (row tiles of 16 tokens), B=8 with a
+    lens 0 sequence and a context shorter than the step, T 2, 8, 32 and 64
+    with t_real < T (padding rows exact zeros), windows that start
+    mid-chunk, tree mode at T 8 and 64; B=1 over 8000 tokens (every chunk
+    of a full cluster ~1000 keys long) causal and tree; and hd 64 at g 1
+    and 8 and hd 128 at g 2, causal and tree, with a tree of 544 tokens at
+    g 1 whose full row tiles read the mask from device memory (too wide to
+    pack)."""
+    import torch
+
+    from bloombee_tpu_torch.ops.cuda import paged_attention as pa
+
+    name = "paged_chunk_attention"
+    i32 = dict(dtype=torch.int32, device="cuda")
+
+    def run(case, q, ks, vs, pt, lens, tree=None, window=0, t_real=None):
+        args = (q, ks, vs, pt, lens, PS, tree, None, window, t_real)
+        b, t, h = q.shape[:3]
+        chunks, tiles = pa.chunk_split(b, t, ks.shape[1], h // ks.shape[1],
+                                       pt.shape[1])
+        got = twice(name, dtype, f"{case} ({tiles} row tiles x {chunks} "
+                    f"chunks)", check,
+                    lambda: pa.paged_chunk_attention(*args),
+                    pa.paged_chunk_attention_reference(*args))
+        for i in range(b):
+            if int(lens[i]) == 0:
+                zeros(name, case, got[i])
+        if tree is None and t_real is not None and t_real < t:
+            zeros(name, case, got[:, t_real:])
+
+    ks, vs = _arena(gen, dtype, 1024)
+    pt = _page_table(gen, 8, 128, 1024)
+    for t, t_real in ((2, 2), (8, 5), (32, 24), (64, 64)):
+        lens = torch.tensor([1000, t_real, 17 + t_real, 2047, 0, 300,
+                             t_real - 1, 129], **i32)
+        q = _unit(gen, (8, t, H, HD), dtype)
+        run(f"B=8 T={t} t_real={t_real} lens {lens.tolist()}", q, ks, vs,
+            pt, lens, t_real=t_real)
+        if t == 32:  # the windows start mid-page, so mid-chunk
+            run(f"B=8 T=32 t_real=24 window=300", q, ks, vs, pt, lens,
+                window=300, t_real=t_real)
+    for t in (8, 64):
+        lens = torch.tensor([1000, t, 17 + t, 2047, 0, 300, 640, 129],
+                            **i32)
+        tree = torch.stack([_tree(t, gen) for _ in range(8)]).cuda()
+        run(f"B=8 tree T={t} lens {lens.tolist()}",
+            _unit(gen, (8, t, H, HD), dtype), ks, vs, pt, lens, tree=tree)
+    pt = _page_table(gen, 1, 512, 1024)
+    lens = torch.tensor([8000], **i32)
+    run("B=1 T=32 t_real=24 lens 8000", _unit(gen, (1, 32, H, HD), dtype),
+        ks, vs, pt, lens, t_real=24)
+    run("B=1 tree T=8 lens 8000", _unit(gen, (1, 8, H, HD), dtype), ks, vs,
+        pt, lens, tree=_tree(8, gen)[None].cuda())
+
+    for hd, h, hkv in ((64, 8, 8), (64, 16, 2), (128, 4, 2)):
+        geo = f"hd={hd} H={h} Hkv={hkv}"
+        ks = _unit(gen, (256 * PS, hkv, hd), dtype)
+        vs = _unit(gen, (256 * PS, hkv, hd), dtype)
+        pt = _page_table(gen, 3, 64, 256)
+        lens = torch.tensor([1000, 0, 77], **i32)
+        run(f"{geo} B=3 T=32 t_real=20 lens {lens.tolist()}",
+            _unit(gen, (3, 32, h, hd), dtype), ks, vs, pt, lens, t_real=20)
+        tree = torch.stack([_tree(40, gen) for _ in range(3)]).cuda()
+        run(f"{geo} B=3 tree T=40 lens {lens.tolist()}",
+            _unit(gen, (3, 40, h, hd), dtype), ks, vs, pt, lens, tree=tree)
+        if h == hkv:
+            pt = _page_table(gen, 1, 128, 256)
+            run(f"{geo} B=1 tree T=544 lens 1400",
+                _unit(gen, (1, 544, h, hd), dtype), ks, vs, pt,
+                torch.tensor([1400], **i32), tree=_tree(544, gen)[None].cuda())
 
 
 def ragged_mix(gen, dtype, window_case: bool):
@@ -1627,6 +1771,13 @@ def phase_serving(profile: bool = False) -> dict[str, dict]:
         raise AssertionError(
             f"{per_step} decode launches per bf16 decode step, want one per "
             f"layer ({spec.num_hidden_layers})"
+        )
+    chunk = launches["serving"]["paged_chunk_attention"]
+    if chunk != 2 * spec.num_hidden_layers:
+        raise AssertionError(
+            f"{chunk} chunk launches on the serving path, want one per layer "
+            f"for the follow-up turn and the tree verify "
+            f"({2 * spec.num_hidden_layers})"
         )
     return launches
 

@@ -131,15 +131,61 @@ def test_ragged_buffers_match_the_launch_on_meta(r, g, b):
         t_paged._counters.pop((q.device, -1), None)
 
 
+def unit_split_merge(qf, k, v, visible, spans, ranges, tk):
+    """One unit of rows as the row-tile kernels' `attend_unit` computes
+    it (the ragged kernel's segments, the chunk kernel's row tiles): qf
+    [rows, h, hd] the scaled query rows, k / v [S, h, hd] the sequence's
+    keys (heads repeated), spans each row's visible range (lo, hi) and
+    visible(r, pos) its keys. No row with a key: zeros. Otherwise each
+    chunk's keys (the union of the ranges within the chunk's keys
+    ranges(lo, hi)[c]) walked in tiles of `tk` keys with one max and one
+    sum per (row, head) and tile, and the chunks merged weighted by
+    exp(m_c - m), empty ones skipped."""
+    rows, h, hd = qf.shape
+    neg = float("-inf")
+    live = [(lo, hi) for lo, hi in spans if lo < hi]
+    if not live:
+        return torch.zeros((rows, h, hd))
+    ulo, uhi = min(x for x, _ in live), max(y for _, y in live)
+    bounds = ranges(ulo, uhi)
+    chunks = len(bounds)
+    m = torch.full((chunks, rows, h), neg)
+    l = torch.zeros((chunks, rows, h))
+    acc = torch.zeros((chunks, rows, h, hd))
+    for c, (klo, khi) in enumerate(bounds):
+        lo, hi = max(ulo, klo), min(uhi, khi)
+        for kb in range(lo, hi, tk):
+            keys = range(kb, min(kb + tk, hi))
+            mask = torch.tensor(
+                [[visible(r, p) for p in keys] for r in range(rows)]
+            )[:, None, :]  # [rows, 1, keys]
+            sc = torch.einsum(
+                "rhd,khd->rhk", qf, k[kb:kb + len(keys)]
+            ).masked_fill(~mask, neg)
+            m_new = torch.maximum(m[c], sc.amax(-1))
+            base = torch.where(m_new == neg, 0.0, m_new)
+            corr = torch.exp(m[c] - base)
+            p = torch.exp(sc - base[..., None])
+            l[c] = l[c] * corr + p.sum(-1)
+            acc[c] = acc[c] * corr[..., None] + torch.einsum(
+                "rhk,khd->rhd", p, v[kb:kb + len(keys)]
+            )
+            m[c] = m_new
+    ok = l > 0
+    mx = torch.where(ok, m, neg).amax(0)
+    e = torch.where(ok, torch.exp(m - mx), 0.0)
+    total = (l * e).sum(0)
+    merged = (acc * e[..., None]).sum(0)
+    return torch.where(total[..., None] > 0,
+                       merged / total.clamp_min(1e-30)[..., None], 0.0)
+
+
 def ragged_split_merge(q, k_slab, v_slab, pt, lens, q_seq, q_pos, ps,
                        window=0, nt=None, tree_rows=None, tk=64):
     """The ragged kernel's decomposition in plain torch: the rows' segments
     (at most RAGGED_ROWS // g rows of one owner), attended by the CTAs of
     the planned grid (the last one also walking any past it), each
-    segment's keys of a chunk (the union of its rows' visible ranges)
-    walked in tiles of `tk` keys with one max and one sum per (row, head)
-    and tile, and the chunks merged weighted by exp(m_c - m), empty ones
-    skipped."""
+    segment a unit of `unit_split_merge`."""
     r, h, hd = q.shape
     b, num_pages = pt.shape
     hkv = k_slab.shape[1]
@@ -172,48 +218,18 @@ def ragged_split_merge(q, k_slab, v_slab, pt, lens, q_seq, q_pos, ps,
         return m < 0 or (m < tree_rows.shape[1] and bool(tree_rows[i, m]))
 
     out = torch.zeros((r, h, hd))
-    neg = float("-inf")
     for start, end in segs:
         run = list(range(start, end))
-        m = torch.full((chunks, r, h), neg)
-        l = torch.zeros((chunks, r, h))
-        acc = torch.zeros((chunks, r, h, hd))
         s = rng(start)[0]
-        spans = [rng(i)[1:3] for i in run if rng(i)[1] < rng(i)[2]]
-        for c in range(chunks):
-            if s < 0 or not spans:
-                break  # every chunk's state stays empty
-            lo = max(min(x for x, _ in spans), c * chunk)
-            hi = min(max(y for _, y in spans), (c + 1) * chunk, cap)
-            mr = torch.full((len(run), h), neg)
-            lr = torch.zeros((len(run), h))
-            ar = torch.zeros((len(run), h, hd))
-            for kb in range(lo, hi, tk):
-                keys = range(kb, min(kb + tk, hi))
-                mask = torch.tensor(
-                    [[visible(i, p) for p in keys] for i in run]
-                )[:, None, :]  # [rows, 1, keys]
-                sc = torch.einsum(
-                    "rhd,khd->rhk", qf[run], k[s, kb:kb + len(keys)]
-                ).masked_fill(~mask, neg)
-                m_new = torch.maximum(mr, sc.amax(-1))
-                base = torch.where(m_new == neg, 0.0, m_new)
-                corr = torch.exp(mr - base)
-                p = torch.exp(sc - base[..., None])
-                lr = lr * corr + p.sum(-1)
-                ar = ar * corr[..., None] + torch.einsum(
-                    "rhk,khd->rhd", p, v[s, kb:kb + len(keys)]
-                )
-                mr = m_new
-            m[c, run], l[c, run], acc[c, run] = mr, lr, ar
-        live = l > 0
-        mx = torch.where(live, m, neg).amax(0)
-        e = torch.where(live, torch.exp(m - mx), 0.0)
-        total = (l * e).sum(0)
-        merged = (acc * e[..., None]).sum(0)
-        done = torch.where(total[..., None] > 0,
-                           merged / total.clamp_min(1e-30)[..., None], 0.0)
-        out[run] = done[run]
+        if s < 0:
+            continue  # padding rows: zeros
+        out[run] = unit_split_merge(
+            qf[run], k[s], v[s], lambda x, pos: visible(run[x], pos),
+            [rng(i)[1:3] for i in run],
+            lambda lo, hi: [(c * chunk, min((c + 1) * chunk, cap))
+                            for c in range(chunks)],
+            tk,
+        )
     return out
 
 
