@@ -5,7 +5,8 @@ Kept: token-budget admission with timeout (`allocate`), handle -> per-
 sequence cache state freed on context exit, speculative write / commit /
 rollback / truncate over the PagedKVTable, ragged per-sequence writes,
 the combined handle of a batched step, and the int4 arena
-(`quant="int4"`, an explicit argument: the port reads no BBTPU_KV_QUANT).
+(`quant="int4"`, an explicit argument here; the server's default comes
+from BBTPU_KV_QUANT).
 Left for later slices: host/disk parking, the prefix pool and
 heterogeneous arenas.
 """

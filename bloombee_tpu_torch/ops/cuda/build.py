@@ -10,9 +10,10 @@ sources build in parallel, one `nvcc` each.
 
 A build failure raises with the compiler's output; nothing falls back.
 
-`LAUNCHES` counts kernel launches by name. Each wrapper adds one exactly
-where it launches its kernel, so a run can show that its main path went
-through the kernels (`reset_launch_counts()` before, read after).
+`LAUNCHES` counts kernel launches by name. Each wrapper adds one
+(`count_launch`) exactly where it launches its kernel, so a run can show
+that its main path went through the kernels (`reset_launch_counts()`
+before, read after).
 """
 
 from __future__ import annotations
@@ -45,8 +46,19 @@ _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
 
+_count_lock = threading.Lock()
+
+
+def count_launch(name: str) -> None:
+    """Add one launch of `name`; safe from several compute threads (two
+    servers in one process each launch from their own)."""
+    with _count_lock:
+        LAUNCHES[name] += 1
+
+
 def reset_launch_counts() -> None:
-    LAUNCHES.clear()
+    with _count_lock:
+        LAUNCHES.clear()
 
 
 def nvcc() -> str:

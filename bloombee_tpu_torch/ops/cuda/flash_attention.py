@@ -25,7 +25,22 @@ from bloombee_tpu_torch.ops.cuda import build
 KERNEL = "flash_attention"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
+# GQA groups H/Hkv the kernel is held to on the card (the paged kernels'
+# groups, so one geometry takes all the routes or none)
+_GROUPS = (1, 2, 4, 8)
 _lib = None
+
+
+def supports(h: int, hkv: int, hd: int, dtype) -> bool:
+    """Whether the kernel takes this head geometry and dtype: the domain
+    `_check` enforces at launch, and the gate the executor routes by."""
+    return (
+        dtype in _DTYPES
+        and hd in _HEAD_DIMS
+        and hkv > 0
+        and h % hkv == 0
+        and h // hkv in _GROUPS
+    )
 
 
 def _defaults(q, k, causal, scale, starts, lens):
@@ -99,8 +114,10 @@ def _check(q, k, v, starts, lens):
         raise ValueError(f"{KERNEL}: head_dim {hd} not in {_HEAD_DIMS}")
     if k.dim() != 4 or k.shape[0] != b or k.shape[3] != hd or k.shape != v.shape:
         raise ValueError(f"{KERNEL}: k/v {tuple(k.shape)} vs q {tuple(q.shape)}")
-    if h % k.shape[2]:
-        raise ValueError(f"{KERNEL}: H={h} not a multiple of Hkv={k.shape[2]}")
+    if h % k.shape[2] or h // k.shape[2] not in _GROUPS:
+        raise ValueError(
+            f"{KERNEL}: H/Hkv = {h}/{k.shape[2]} not in {_GROUPS}"
+        )
     if k.shape[1] < t:
         raise ValueError(f"{KERNEL}: S={k.shape[1]} must be >= T={t}")
     for name, x in (("k", k), ("v", v)):
@@ -141,5 +158,5 @@ def flash_attention(
         _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check(err, KERNEL)
-    build.LAUNCHES[KERNEL] += 1
+    build.count_launch(KERNEL)
     return out

@@ -83,6 +83,19 @@ CHUNK_CTAS = 240
 _counters: dict = {}
 
 
+def supports(h: int, hkv: int, hd: int, dtype) -> bool:
+    """Whether the paged kernels (decode, int4 decode, chunk, ragged) take
+    this head geometry and dtype: the domain `_check` enforces at launch,
+    and the gate the executor routes by."""
+    return (
+        dtype in _DTYPES
+        and hd in _HEAD_DIMS
+        and hkv > 0
+        and h % hkv == 0
+        and h // hkv in _GROUPS
+    )
+
+
 def _gather(slab, page_table, page_size):
     """[B, NP * page_size, Hkv, hd] f32: each row's pages of a dense slab
     or, dequantized, of a QuantSlab."""
@@ -511,7 +524,7 @@ def paged_decode_attention(
         stream,
     )
     build.check(err, DECODE)
-    build.LAUNCHES[DECODE] += 1
+    build.count_launch(DECODE)
     return out
 
 
@@ -561,7 +574,7 @@ def paged_chunk_attention(
         _scale(scale, hd), _DTYPES[q.dtype], _stream(q),
     )
     build.check(err, CHUNK)
-    build.LAUNCHES[CHUNK] += 1
+    build.count_launch(CHUNK)
     return out
 
 
@@ -602,7 +615,7 @@ def paged_decode_attention_int4(
         chunks, _scale(scale, hd), _DTYPES[q.dtype], stream,
     )
     build.check(err, INT4)
-    build.LAUNCHES[INT4] += 1
+    build.count_launch(INT4)
     return out
 
 
@@ -663,5 +676,5 @@ def paged_ragged_attention(
         segments, _scale(scale, hd), _DTYPES[q.dtype], stream,
     )
     build.check(err, RAGGED)
-    build.LAUNCHES[RAGGED] += 1
+    build.count_launch(RAGGED)
     return out

@@ -16,6 +16,12 @@ CUDA device those routes launch the Hopper kernels; on the CPU (tests) the
 kernels' plain versions run. A kernel failure raises: nothing retries on
 another route.
 
+The CUDA kernels take fewer shapes than the Pallas ones (head_dim 64 or
+128, H/Hkv in {1, 2, 4, 8}, f32 or bf16: `supports` beside each wrapper's
+constants). A step outside that domain takes the dense route, on the CPU as
+on the card: the route is a function of the spec, the dtype and the
+buckets alone, decided before any launch.
+
 The thresholds are the JAX package's TPU-derived defaults; the port's own
 come from measurements on the card in a later slice.
 """
@@ -28,6 +34,8 @@ import torch
 from bloombee_tpu_torch.kv.arena import write_plan
 from bloombee_tpu_torch.kv.cache_manager import CacheHandle, CacheManager
 from bloombee_tpu_torch.models.spec import ModelSpec
+from bloombee_tpu_torch.ops.cuda import flash_attention as cuda_flash
+from bloombee_tpu_torch.ops.cuda import paged_attention as cuda_paged
 from bloombee_tpu_torch.runtime.step import span_step, span_step_ragged
 from bloombee_tpu_torch.utils import env
 from bloombee_tpu_torch.utils.device import resolve_device
@@ -123,6 +131,13 @@ class SpanExecutor:
         self.start_block = start_block
         self.page_size = manager.page_size
         self.paged_min_context = env.get("BBTPU_PAGED_MIN_CONTEXT")
+        # the CUDA kernels' shape domain: outside it every route is dense
+        geometry = (
+            spec.num_attention_heads, spec.num_key_value_heads,
+            spec.head_dim, compute_dtype,
+        )
+        self.paged_supported = cuda_paged.supports(*geometry)
+        self.flash_supported = cuda_flash.supports(*geometry)
 
     # ------------------------------------------------------------------ steps
     def prefill(
@@ -372,10 +387,12 @@ class SpanExecutor:
             )
         )
 
-        # ragged-kernel eligibility, as in the JAX executor: dense arena,
-        # rb * H <= 2048, contexts past the paged crossover
+        # ragged-kernel eligibility, as in the JAX executor (dense arena,
+        # rb * H <= 2048, contexts past the paged crossover), inside the
+        # kernel's shape domain
         use_kernel = bool(
-            self.manager.quant is None
+            self.paged_supported
+            and self.manager.quant is None
             and rb * spec.num_attention_heads <= 2048
             and pb * self.page_size >= self.paged_min_context
         )
@@ -444,7 +461,8 @@ class SpanExecutor:
         lens_pad[:b] = total_lens
 
         # eligibility, as in the JAX executor (executor.py:1174-1221):
-        # T=1 over a dense or an int4 arena, short chunks over a dense one
+        # T=1 over a dense or an int4 arena, short chunks over a dense one;
+        # each route only inside its kernel's shape domain
         h_heads = spec.num_attention_heads
         t1_ok = tb == 1
         chunk_ok = (
@@ -454,12 +472,14 @@ class SpanExecutor:
             and (tree_mask is None or all(w == 0 for w in self.windows))
         )
         use_paged = bool(
-            pb * self.page_size >= self.paged_min_context
+            self.paged_supported
+            and pb * self.page_size >= self.paged_min_context
             and (t1_ok or chunk_ok)
         )
         s_ctx = pb * self.page_size
         use_flash = bool(
-            tree_mask is None
+            self.flash_supported
+            and tree_mask is None
             and tb >= 128
             and tb % 128 == 0
             and s_ctx % 128 == 0

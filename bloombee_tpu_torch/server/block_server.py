@@ -1,0 +1,687 @@
+"""BlockServer: one worker hosting blocks [start, end) of a model (the
+minimal port of bloombee_tpu/server/block_server.py).
+
+The same RPCs and frames as the JAX server, so a JAX client, a JAX registry
+and JAX servers work with it:
+
+- `rpc_inference` stream: one decode session. Items arrive from the client
+  stream or, pushed by the previous span's server, through `rpc_push`; the
+  session loop races both. Each step is its own dispatch through the
+  compute queue (`executor.prefill` for T>1, `executor.decode` for T=1,
+  fetch=False), and the device-to-host fetch runs off the queue.
+- `rpc_push`: a step pushed by an upstream server (buffered briefly when it
+  races ahead of its session's open). A step whose meta names a `route`
+  pushes its output on to the next hop and acks its own stream.
+- `rpc_info`: the server's counters and its ServerInfo.
+- A background announcer re-declares the span in the registry every
+  `announce_period`, with expiration as the liveness signal.
+
+What this server does not serve yet is refused loudly, never ignored: a step
+whose meta asks for chained decode_n (`chain`, `decode_n`), KV replication
+or the prefix cache (`kv_repl`, `prefix_probe`) or speculative decoding
+(`accept`, `accept_only`, `tree`, `prune`) fails its session with an error
+frame naming the key; so does an open asking for a LoRA adapter or a
+session resume. The server advertises those features as off.
+
+Two servers in one process on one card share the device's default stream:
+each launches from its own compute thread, the split kernels' counters are
+keyed by (device, stream) and every launch leaves them at zero, and
+launches on one stream run in order, so sharing is safe.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import dataclasses
+import logging
+import uuid
+
+import torch
+
+from bloombee_tpu_torch.kv.cache_manager import CacheManager
+from bloombee_tpu_torch.kv.quant import QuantSlab, slab_nbytes
+from bloombee_tpu_torch.models.spec import ModelSpec
+from bloombee_tpu_torch.runtime.executor import SpanExecutor
+from bloombee_tpu_torch.server.compute_queue import (
+    PRIORITY_INFERENCE,
+    ComputeQueue,
+    DeadlineExpired,
+)
+from bloombee_tpu_torch.swarm.data import ServerInfo, ServerState
+from bloombee_tpu_torch.swarm.ping import PingAggregator
+from bloombee_tpu_torch.utils import clock, env, lockwatch
+from bloombee_tpu_torch.utils.device import resolve_device
+from bloombee_tpu_torch.wire.flow import FlowLimiter
+from bloombee_tpu_torch.wire.rpc import (
+    Connection,
+    RpcServer,
+    Stream,
+    connect,
+)
+from bloombee_tpu_torch.wire.tensor_codec import (
+    dtype_for_name,
+    transport_stats,
+)
+
+logger = logging.getLogger(__name__)
+
+env.declare(
+    "BBTPU_KV_QUANT", str, "none",
+    "KV cache quantization of a server that is not told: none | int4 "
+    "(group-wise 4-bit device arena)",
+)
+
+# step-meta keys this server refuses, with what they ask for; a key asks
+# only when its value is truthy (a JAX client sends "tree": false on every
+# plain step)
+REFUSED_STEP_KEYS = {
+    "chain": "chained decode_n",
+    "decode_n": "server-side decode_n",
+    "kv_repl": "session-KV replication",
+    "prefix_probe": "the shared-prefix cache",
+    "accept": "speculative decoding (accept)",
+    "accept_only": "speculative decoding (accept)",
+    "tree": "speculative decoding (tree verify)",
+    "prune": "speculative decoding (mid-chain pruning)",
+}
+
+
+class _Session:
+    def __init__(self, session_id: str, handle, batch_size: int,
+                 layers: tuple[int, int] | None = None):
+        self.id = session_id
+        self.handle = handle
+        self.batch_size = batch_size
+        self.layers = layers  # relative (l0, l1) within this server's span
+        self.push_inbox: asyncio.Queue = asyncio.Queue()
+        self.step_tasks: set[asyncio.Task] = set()  # in-flight mb chunks
+        self.last_step_at = 0.0
+        # per-session timing accumulators (the server half of the
+        # reference's [TIMING_TABLE] decomposition)
+        self.n_steps = 0
+        self.sum_tokens = 0
+        self.sum_dispatch_ms = 0.0
+        self.sum_fetch_ms = 0.0
+        self.opened_at = 0.0
+
+
+class _PeerPool:
+    """Cached outbound connections for server-to-server push.
+
+    Locking is per-peer so one unreachable peer's connect timeout cannot
+    stall pushes to healthy peers."""
+
+    def __init__(self):
+        self._conns: dict[tuple[str, int], Connection] = {}
+        self._locks: dict[tuple[str, int], asyncio.Lock] = {}
+        self._limiters: dict[tuple[str, int], FlowLimiter] = {}
+
+    def limiter(self, host: str, port: int) -> FlowLimiter:
+        """Per-peer adaptive push limiter."""
+        key = (host, port)
+        lim = self._limiters.get(key)
+        if lim is None:
+            lim = self._limiters[key] = FlowLimiter(name=f"{host}:{port}")
+        return lim
+
+    async def get(self, host: str, port: int) -> Connection:
+        key = (host, port)
+        lock = self._locks.get(key)
+        if lock is None:
+            lock = self._locks[key] = lockwatch.async_lock("server.peer_pool")
+        async with lock:
+            conn = self._conns.get(key)
+            if conn is None or conn.is_closing():
+                conn = await connect(host, port)
+                self._conns[key] = conn
+            return conn
+
+    async def close(self):
+        for c in self._conns.values():
+            await c.close()
+        self._conns.clear()
+
+
+def _nbytes(x) -> int:
+    if isinstance(x, QuantSlab):
+        return slab_nbytes(x)
+    return x.numel() * x.element_size()
+
+
+class BlockServer:
+    def __init__(
+        self,
+        *,
+        model_uid: str,
+        start: int,
+        end: int,
+        params: list[dict] | None = None,  # per-layer params of [start, end)
+        spec: ModelSpec | None = None,
+        model_dir: str | None = None,
+        registry=None,
+        host: str = "127.0.0.1",
+        port: int = 0,
+        public_host: str | None = None,
+        num_pages: int = 256,
+        page_size: int = 16,
+        compute_dtype=torch.bfloat16,
+        max_chunk_tokens: int = 512,
+        announce_period: float = 5.0,
+        alloc_timeout: float = 60.0,
+        throughput: float = 1.0,
+        kv_quant: str | None = None,  # None -> BBTPU_KV_QUANT
+        keepalive_s: float | None = None,  # None -> BBTPU_KEEPALIVE_S
+        device="cuda",
+    ):
+        self.device = resolve_device(device)
+        if params is None:
+            from bloombee_tpu_torch.models.checkpoint import load_span_params
+
+            params, spec = load_span_params(
+                model_dir, start, end, dtype=compute_dtype,
+                device=self.device,
+            )
+        if spec is None:
+            raise ValueError("in-memory params need their spec")
+        if kv_quant is None:
+            kv_quant = env.get("BBTPU_KV_QUANT")
+        self.model_uid = model_uid
+        self.start_block = start
+        self.end_block = end
+        self.spec = spec
+        self.server_id = f"srv-{uuid.uuid4().hex[:8]}"
+        self.registry = registry
+        self.announce_period = announce_period
+        self.alloc_timeout = alloc_timeout
+        self.public_host = public_host or host
+        self.throughput = throughput
+        self.inference_rps: float | None = None
+        self.manager = CacheManager(
+            end - start, num_pages, page_size, spec.num_key_value_heads,
+            spec.head_dim, dtype=compute_dtype, device=self.device,
+            quant=kv_quant,
+        )
+        self.executor = SpanExecutor(
+            params, spec, self.manager, max_chunk_tokens=max_chunk_tokens,
+            compute_dtype=compute_dtype, start_block=start,
+            device=self.device,
+        )
+        # replies ship in bf16 from a bf16 server, else f32 (the JAX
+        # executor's transfer dtype)
+        self.wire_dtype = "bf16" if compute_dtype == torch.bfloat16 else "f32"
+        self._wire_torch_dtype = dtype_for_name(self.wire_dtype)
+        self.compute = ComputeQueue(max_group=1)
+        self.peers = _PeerPool()
+        # measured RTTs to servers of the block after this span, announced
+        # in ServerInfo.next_pings for routing
+        self.next_pings = PingAggregator()
+        self._sessions: dict[str, _Session] = {}
+        self._pending_pushes: dict[str, list] = {}
+        self.pending_push_ttl = 30.0
+        self._announce_task: asyncio.Task | None = None
+        # counters (rpc_info)
+        self.deadlines_expired = 0
+        self.pushes_dropped = 0
+        self.step_dispatches = 0
+        self.step_tokens = 0
+        self.rpc = RpcServer(
+            unary_handlers={"rpc_info": self._rpc_info},
+            stream_handlers={"rpc_inference": self._rpc_inference},
+            push_handlers={"rpc_push": self._rpc_push},
+            host=host,
+            port=port,
+            keepalive_s=keepalive_s,
+        )
+
+    # ------------------------------------------------------------ lifecycle
+    @property
+    def port(self) -> int:
+        return self.rpc.port
+
+    async def start(self) -> None:
+        await self.rpc.start()
+        self.compute.start()
+        if self.registry is not None:
+            await self._announce(ServerState.ONLINE)
+            self._announce_task = asyncio.create_task(self._announce_loop())
+        logger.info(
+            "server %s serving %s[%d:%d] on port %d", self.server_id,
+            self.model_uid, self.start_block, self.end_block, self.port,
+        )
+
+    async def stop(self) -> None:
+        if self._announce_task is not None:
+            self._announce_task.cancel()
+        if self.registry is not None:
+            try:
+                await self.registry.revoke_blocks(
+                    self.model_uid, self.server_id,
+                    range(self.start_block, self.end_block),
+                    # the tombstone must outlive any replica's stale copy of
+                    # our announce (expiration = announce_period * 2.5)
+                    expiration=max(60.0, self.announce_period * 2.5 + 10.0),
+                )
+            except Exception:
+                # best-effort: the announce record expires on its own
+                pass
+        await self.compute.stop()
+        await self.peers.close()
+        await self.rpc.stop()
+
+    def server_info(self) -> ServerInfo:
+        return ServerInfo(
+            state=ServerState.ONLINE,
+            host=self.public_host,
+            port=self.port,
+            throughput=self.throughput,
+            inference_rps=self.inference_rps,
+            cache_tokens_left=self.manager.tokens_left,
+            start_block=self.start_block,
+            end_block=self.end_block,
+            wire_dtype=self.wire_dtype,
+            next_pings=self.next_pings.to_wire() or None,
+            # features this server does not serve, advertised off
+            adapters=None,
+            decode_n_max=0,
+            page_size=0,
+            kv_repl=False,
+            out_digest=False,
+            artifacts=False,
+        )
+
+    async def _announce(self, state: ServerState) -> None:
+        info = self.server_info()
+        info.state = state
+        await self.registry.declare_blocks(
+            self.model_uid,
+            self.server_id,
+            range(self.start_block, self.end_block),
+            info,
+            expiration=self.announce_period * 2.5,
+        )
+
+    async def _announce_loop(self) -> None:
+        while True:
+            await clock.async_sleep(self.announce_period)
+            try:
+                # announce FIRST (liveness must not wait on pings); the
+                # pings measured after ride the NEXT announce
+                await self._announce(ServerState.ONLINE)
+                await asyncio.wait_for(
+                    self._measure_next_pings(), self.announce_period
+                )
+            except asyncio.TimeoutError:
+                pass
+            except Exception as e:
+                logger.warning("announce failed: %s", e)
+
+    async def _measure_next_pings(self) -> None:
+        """Ping servers holding the block right after this span so routing
+        can cost our push hop with real RTTs."""
+        try:
+            infos = await self.registry.get_module_infos(
+                self.model_uid, [self.end_block]
+            )
+        except Exception:
+            return
+        if not infos or not infos[0].servers:
+            return
+        peers = [
+            (sid, info.host, info.port)
+            for sid, info in infos[0].servers.items()
+            if sid != self.server_id and self.next_pings.needs_measure(sid)
+        ][:8]
+        if peers:
+            await self.next_pings.measure_many(peers)
+
+    # ------------------------------------------------------------------- RPCs
+    def _memory_report(self) -> dict:
+        """Bytes this server holds (span params, KV arena) and, on a card,
+        the device allocator's counters."""
+        report = {
+            "span_params_bytes": sum(
+                _nbytes(x) for layer in self.executor.params
+                for x in layer.values()
+            ),
+            "kv_arena_bytes": sum(
+                _nbytes(x) for x in self.manager.arena.values()
+            ),
+            "kv_tokens_capacity": self.manager.capacity_tokens,
+            "kv_tokens_reserved": (
+                self.manager.capacity_tokens - self.manager.tokens_left
+            ),
+            "device": {},
+        }
+        if self.device.type == "cuda":
+            stats = torch.cuda.memory_stats(self.device)
+            report["device"] = {
+                "bytes_in_use": int(
+                    stats.get("allocated_bytes.all.current", 0)
+                ),
+                "peak_bytes_in_use": int(
+                    stats.get("allocated_bytes.all.peak", 0)
+                ),
+                "bytes_reserved": int(
+                    stats.get("reserved_bytes.all.current", 0)
+                ),
+                "bytes_limit": int(
+                    torch.cuda.get_device_properties(self.device).total_memory
+                ),
+            }
+        return report
+
+    async def _rpc_info(self, meta: dict, tensors):
+        now = clock.monotonic()
+        ages = [now - s.opened_at for s in self._sessions.values()]
+        idles = [now - s.last_step_at for s in self._sessions.values()]
+        info = {
+            "server_id": self.server_id,
+            "server_time": clock.now(),  # NTP-style clock sync anchor
+            "transport": transport_stats(),
+            "wire_pipeline": self.rpc.pipeline_stats(),
+            "deadlines_expired": self.deadlines_expired,
+            "draining": False,
+            "standby": False,
+            "keepalives_sent": self.rpc.keepalives_sent,
+            "pushes_dropped": self.pushes_dropped,
+            "active_sessions": len(self._sessions),
+            "session_oldest_s": round(max(ages), 3) if ages else 0.0,
+            "session_oldest_idle_s": round(max(idles), 3) if idles else 0.0,
+            "queue_wait_ms": self.compute.wait_stats_ms(),
+            "step_dispatches": self.step_dispatches,
+            "step_tokens": self.step_tokens,
+            "dispatches_per_token": (
+                self.step_dispatches / max(self.step_tokens, 1)
+            ),
+            **lockwatch.counters(),
+            "decode_n": False,
+            "decode_n_fused": False,
+            "decode_n_first": False,
+            "decode_n_last": False,
+            "memory": self._memory_report(),
+            **self.server_info().to_wire(),
+        }
+        return info, []
+
+    async def _rpc_inference(self, stream: Stream) -> None:
+        """One decode session. Open meta: {session_id, batch_size, max_length,
+        start?, end?}; items: {step, commit, reply, route, ...} + [hidden
+        (B, T, D)]."""
+        meta = stream.open_meta
+        if meta.get("resume") is not None:
+            raise ValueError(
+                "open meta 'resume': session resume is not served here "
+                "(no session leases); open a new session"
+            )
+        if meta.get("adapter"):
+            raise ValueError(
+                f"open meta 'adapter' ({meta['adapter']!r}): per-request "
+                "LoRA adapters are not served here"
+            )
+        session_id = meta["session_id"]
+        batch = int(meta["batch_size"])
+        max_length = int(meta["max_length"])
+        layers = self._resolve_layers(meta)
+        async with self.manager.allocate(
+            batch, max_length, timeout=self.alloc_timeout
+        ) as handle:
+            session = _Session(session_id, handle, batch, layers)
+            session.opened_at = clock.monotonic()
+            session.last_step_at = session.opened_at
+            self._sessions[session_id] = session
+            self._drain_pending_pushes(session)
+            try:
+                await self._session_loop(session, stream)
+            finally:
+                self._sessions.pop(session_id, None)
+                if session.n_steps:
+                    wall = clock.monotonic() - session.opened_at
+                    logger.info(
+                        "[TIMING_TABLE] session=%s steps=%d tokens=%d "
+                        "mean_dispatch_ms=%.2f mean_fetch_ms=%.2f "
+                        "wall_s=%.2f steps_per_s=%.2f",
+                        session.id, session.n_steps, session.sum_tokens,
+                        session.sum_dispatch_ms / session.n_steps,
+                        session.sum_fetch_ms / session.n_steps,
+                        wall, session.n_steps / max(wall, 1e-9),
+                    )
+
+    def _resolve_layers(self, meta: dict) -> tuple[int, int] | None:
+        """Honor a requested sub-span (the router may enter this server's span
+        mid-way)."""
+        start = int(meta.get("start", self.start_block))
+        end = int(meta.get("end", self.end_block))
+        if not (self.start_block <= start < end <= self.end_block):
+            raise ValueError(
+                f"requested blocks [{start},{end}) outside served span "
+                f"[{self.start_block},{self.end_block})"
+            )
+        if (start, end) == (self.start_block, self.end_block):
+            return None
+        return (start - self.start_block, end - self.start_block)
+
+    async def _session_loop(self, session: _Session, stream: Stream) -> None:
+        """Race client-stream items against pushed items. Micro-batch chunks
+        (mb_of > 1) run as concurrent tasks so chunk k+1's compute dispatches
+        while chunk k's output is still in flight downstream; whole-batch
+        steps keep strict sequential handling."""
+        stream_next = asyncio.ensure_future(stream.recv())
+        push_next = asyncio.ensure_future(session.push_inbox.get())
+        try:
+            while True:
+                done, _ = await asyncio.wait(
+                    {stream_next, push_next},
+                    return_when=asyncio.FIRST_COMPLETED,
+                )
+                if stream_next in done:
+                    item = stream_next.result()
+                    if item is None:
+                        break  # client closed the session
+                    await self._handle_item(session, stream, *item)
+                    stream_next = asyncio.ensure_future(stream.recv())
+                if push_next in done:
+                    meta, tensors = push_next.result()
+                    await self._handle_item(session, stream, meta, tensors)
+                    push_next = asyncio.ensure_future(session.push_inbox.get())
+        finally:
+            stream_next.cancel()
+            if push_next.done() and not push_next.cancelled():
+                # a pushed item won the race at teardown: count it
+                self.pushes_dropped += 1
+            else:
+                push_next.cancel()
+            # drain in-flight chunk tasks BEFORE the allocate context frees
+            # the session's pages: a still-running dispatch must not write
+            # KV into pages a new session may reuse
+            if session.step_tasks:
+                await asyncio.gather(
+                    *session.step_tasks, return_exceptions=True
+                )
+
+    async def _handle_item(
+        self, session: _Session, stream: Stream, meta: dict, tensors: list
+    ) -> None:
+        if int(meta.get("mb_of", 1)) <= 1:
+            await self._run_step(session, stream, meta, tensors)
+            return
+        task = asyncio.create_task(
+            self._run_step_logged(session, stream, meta, tensors)
+        )
+        session.step_tasks.add(task)
+        task.add_done_callback(session.step_tasks.discard)
+
+    async def _run_step_logged(
+        self, session: _Session, stream: Stream, meta: dict, tensors: list
+    ) -> None:
+        try:
+            await self._run_step(session, stream, meta, tensors)
+        except asyncio.CancelledError:
+            raise
+        except Exception as e:
+            # a failed chunk poisons the whole step: close the stream so the
+            # client's retry path rebuilds the chain
+            logger.warning("micro-batch step failed: %s", e)
+            try:
+                await stream.close()
+            except Exception:
+                pass
+
+    def _note_deadline_expired(self, meta: dict, where: str) -> None:
+        self.deadlines_expired += 1
+        logger.info(
+            "dropping step %s: client deadline expired %s (%d drops total)",
+            meta.get("step"), where, self.deadlines_expired,
+        )
+
+    async def _run_step(
+        self, session: _Session, stream: Stream, meta: dict, tensors: list
+    ) -> None:
+        for key, what in REFUSED_STEP_KEYS.items():
+            if meta.get(key):
+                raise ValueError(
+                    f"step meta {key!r}: {what} is not served by this server"
+                )
+        # "deadline_s" is the RELATIVE time the client has left; a local
+        # monotonic cutoff from arrival
+        budget = meta.get("deadline_s")
+        deadline = None if budget is None else clock.monotonic() + budget
+        if deadline is not None and clock.monotonic() > deadline:
+            self._note_deadline_expired(meta, "on arrival")
+            return
+        hidden = tensors[0]  # CPU, in the sender's wire dtype
+        commit = bool(meta.get("commit", True))
+        # micro-batch chunk: a row slice of the session's cache handle
+        rows = meta.get("rows")
+        handle = session.handle
+        if rows is not None and tuple(rows) != (0, session.batch_size):
+            handle = dataclasses.replace(
+                session.handle, seq_ids=session.handle.seq_ids[rows[0]:rows[1]]
+            )
+        if hidden.shape[0] != handle.batch_size:
+            raise ValueError(
+                f"step rows {rows} carry batch {hidden.shape[0]} != "
+                f"{handle.batch_size} cache rows"
+            )
+        # ragged replay: each row commits to its own length after the step
+        commit_lens = meta.get("commit_lens")
+        if commit_lens is not None:
+            commit_lens = [int(x) for x in commit_lens]
+            if rows is not None:
+                commit_lens = commit_lens[rows[0]:rows[1]]
+        # dispatch on the serialized compute queue; the fetch runs here,
+        # off the queue, so concurrent sessions overlap their round trips
+        try:
+            out_dev, t_dispatch_ms = await self.compute.submit(
+                PRIORITY_INFERENCE, self._compute_step, session, handle,
+                hidden, commit, commit_lens, deadline=deadline,
+                task_class="prefill" if hidden.shape[1] > 1 else "decode",
+            )
+        except DeadlineExpired:
+            self._note_deadline_expired(meta, "while queued")
+            return
+        t0 = clock.perf_counter()
+        out = await asyncio.to_thread(self._fetch, out_dev)
+        t_fetch_ms = (clock.perf_counter() - t0) * 1000.0
+        timing_meta = {
+            "t_compute_ms": t_dispatch_ms + t_fetch_ms,
+            "t_dispatch_ms": t_dispatch_ms,
+            "t_fetch_ms": t_fetch_ms,
+        }
+        session.n_steps += 1
+        session.sum_tokens += int(hidden.shape[0]) * int(hidden.shape[1])
+        session.sum_dispatch_ms += t_dispatch_ms
+        session.sum_fetch_ms += t_fetch_ms
+
+        route = meta.get("route") or []
+        reply = meta.get("reply", "tensor")
+        if route:
+            nxt = route[0]
+            push_meta = {
+                "session_id": nxt["session_id"],
+                "step": meta.get("step"),
+                "commit": commit,
+                "tree": False,
+                "reply": reply,
+                "route": route[1:],
+            }
+            for key in ("mb", "mb_of", "rows", "commit_lens", "prefix_skip"):
+                if meta.get(key) is not None:
+                    push_meta[key] = meta[key]
+            if deadline is not None:
+                # forward the REMAINDER of the budget
+                remaining = deadline - clock.monotonic()
+                if remaining <= 0:
+                    self._note_deadline_expired(meta, "before forwarding")
+                    return
+                push_meta["deadline_s"] = remaining
+            conn = await self.peers.get(nxt["host"], nxt["port"])
+            async with self.peers.limiter(nxt["host"], nxt["port"]).slot():
+                await conn.push("rpc_push", push_meta, [out])
+            # ack our own client stream so it sees this hop succeeded
+            await stream.send(
+                {"step": meta.get("step"), "ack": True, **timing_meta}
+            )
+        elif reply == "ack":
+            await stream.send(
+                {"step": meta.get("step"), "ack": True, **timing_meta}
+            )
+        else:
+            resp = {"step": meta.get("step"), **timing_meta}
+            for key in ("mb", "rows"):
+                if meta.get(key) is not None:
+                    resp[key] = meta[key]
+            await stream.send(resp, [out])
+
+    def _compute_step(self, session: _Session, handle, hidden, commit,
+                      commit_lens):
+        """Runs on the compute thread: plan packing + asynchronous device
+        dispatch only (the fetch happens off the queue). Returns the
+        device output and the dispatch time in ms."""
+        session.last_step_at = clock.monotonic()
+        t0 = clock.perf_counter()
+        if hidden.shape[1] > 1:
+            out = self.executor.prefill(
+                handle, hidden, commit=commit, layers=session.layers,
+                fetch=False,
+            )
+        else:
+            out = self.executor.decode(
+                handle, hidden, commit=commit, layers=session.layers,
+                fetch=False,
+            )
+        if commit_lens is not None:
+            self.manager.commit(handle, lengths=commit_lens)
+        self.step_dispatches += 1
+        self.step_tokens += int(hidden.shape[0]) * int(hidden.shape[1])
+        return out, (clock.perf_counter() - t0) * 1000.0
+
+    def _fetch(self, out_dev) -> torch.Tensor:
+        """The step's output on the host, in the wire dtype."""
+        return self.executor.fetch(out_dev).to(self._wire_torch_dtype)
+
+    async def _rpc_push(self, meta: dict, tensors) -> None:
+        session = self._sessions.get(meta["session_id"])
+        if session is None:
+            # a push can race ahead of the session's stream-open
+            # (allocation may be waiting on cache budget): buffer it
+            self._buffer_pending_push(meta, tensors)
+            return
+        session.push_inbox.put_nowait((meta, tensors))
+
+    def _buffer_pending_push(self, meta: dict, tensors) -> None:
+        now = clock.monotonic()
+        sid = meta["session_id"]
+        self._pending_pushes.setdefault(sid, []).append((now, meta, tensors))
+        # drop stale buffers
+        for key in list(self._pending_pushes):
+            self._pending_pushes[key] = [
+                e
+                for e in self._pending_pushes[key]
+                if now - e[0] < self.pending_push_ttl
+            ]
+            if not self._pending_pushes[key]:
+                del self._pending_pushes[key]
+
+    def _drain_pending_pushes(self, session: _Session) -> None:
+        for _, meta, tensors in self._pending_pushes.pop(session.id, []):
+            session.push_inbox.put_nowait((meta, tensors))

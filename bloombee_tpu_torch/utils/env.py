@@ -19,7 +19,7 @@ logger = logging.getLogger(__name__)
 @dataclasses.dataclass(frozen=True)
 class Flag:
     name: str
-    kind: type  # int | float | str
+    kind: type  # bool | int | float | str
     default: object
     help: str
 
@@ -34,6 +34,8 @@ def declare(name: str, kind: type, default, help_: str) -> Flag:
 
 
 def _parse(flag: Flag, raw: str):
+    if flag.kind is bool:
+        return raw.strip().lower() in ("1", "true", "yes", "on")
     try:
         return flag.kind(raw)
     except ValueError:

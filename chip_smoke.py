@@ -36,7 +36,14 @@ Phases:
    decode rows + an 8-node tree (ragged kernel) must match the members run
    solo and the dense attend_ragged route; and an int4 arena's 8 greedy
    decodes on the int4 kernel must match its dense route (same limit,
-   identical greedy tokens).
+   identical greedy tokens). Served: a port registry and two port
+   BlockServers over the same 4 layers (blocks [0, 2) and [2, 4)); one
+   batch-2 session through push routing (the JAX client's frames) prefills
+   the 1000 tokens and runs 8 greedy decodes, matching the executor (same
+   limit, identical greedy tokens). Routing: H=24, Hkv=8 (GQA group 3,
+   outside the kernels' domain), 2 layers, a 600-token prefill and 4
+   decodes take the dense routes (no paged or flash launch) and match
+   `block_forward` + `dense_attend` (same limit).
 4. Serving run in bf16: the whole Llama-3-8B (32 layers, full width),
    1024 arena pages, three paths, each with the launch counts reset just
    before it and read just after it (before any profiling):
@@ -54,6 +61,19 @@ Phases:
    Every kernel must show launches on its path, the bf16 decode step
    exactly one decode launch per layer, and the serving path one chunk
    launch per layer for each of its two T>1 steps.
+5. Served in bf16 over phase 4's weights (no second copy): a port registry
+   and two port BlockServers on the card (blocks [0, 16) and [16, 32),
+   1024-page arenas); four concurrent sessions through push (the JAX
+   client's frames, over the port's wire) each prefill 1000 tokens, run 32
+   greedy decode steps and a 24-token follow-up turn. The same sessions
+   solo on one SpanExecutor with the server's calls must give identical
+   greedy tokens, and last-position hidden states within 1e-2 x |ref| +
+   1e-3 each. The launch counts of the served run (path "served") must
+   show flash, paged decode and paged chunk, and exactly one decode launch
+   per layer per session step. Prints the prefill round trips, the
+   client-observed decode step beside the executor's solo step, the
+   replies' dispatch and fetch medians, the bytes a decode step moves on
+   the wire, and the card's name and power limit.
 
 Prints the card's name and power limit, per-phase results, a
 `{"kernels": [...]}` line, and as its last line
@@ -1204,7 +1224,10 @@ def phase_f32_path():
         raise AssertionError(f"f32 path missed kernels: {launches}")
     f32_ragged(layers, client, spec, gen)
     f32_int4(layers, client, spec, gen)
+    f32_served(layers, client, spec, fed, out, greedy)
     del layers, client
+    torch.cuda.empty_cache()
+    f32_group3()
 
 
 def executor_pair(layers, spec, manager, dtype):
@@ -1382,6 +1405,226 @@ def f32_int4(layers, client, spec, gen):
             and launches.get("paged_decode_attention_int4", 0) == 32
             and "paged_decode_attention_int4" not in dense_launches):
         raise AssertionError("f32 int4 check failed")
+
+
+def f32_group3():
+    """Phase 3, routing outside the kernels' shape domain: H=24, Hkv=8
+    (GQA group 3), hd=128, 2 layers in f32. A 600-token prefill (a 512-token
+    flash bucket and an 88-token chunk) and 4 decodes past the paged
+    crossover must take the dense routes, with no paged or flash launch,
+    and match block_forward + dense_attend."""
+    import torch
+
+    from bloombee_tpu_torch.kv.cache_manager import CacheManager
+    from bloombee_tpu_torch.models.llama.block import (
+        block_forward,
+        dense_attend,
+        init_block_params,
+    )
+    from bloombee_tpu_torch.models.spec import ModelSpec
+    from bloombee_tpu_torch.ops.cuda import build
+    from bloombee_tpu_torch.ops.rotary import rotary_cos_sin
+    from bloombee_tpu_torch.runtime.executor import SpanExecutor
+
+    spec = ModelSpec(
+        family="llama", hidden_size=3072, intermediate_size=8192,
+        num_attention_heads=24, num_key_value_heads=8, head_dim=HD,
+        num_hidden_layers=2, vocab_size=32000, rms_norm_eps=1e-5,
+        rope_theta=500000.0,
+    )
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    layers = [
+        init_block_params(gen, spec, dtype=torch.float32, device="cuda")
+        for _ in range(2)
+    ]
+    manager = CacheManager(2, 64, PS, 8, HD, dtype=torch.float32,
+                           device="cuda")
+    ex = SpanExecutor(layers, spec, manager, max_chunk_tokens=512,
+                      compute_dtype=torch.float32, device="cuda")
+    x = torch.randn((1, 604, spec.hidden_size), generator=gen, device="cuda")
+
+    async def run():
+        async with manager.allocate(1, 640) as h:
+            outs = [ex.prefill(h, x[:, :600], fetch=False)]
+            for i in range(600, 604):
+                outs.append(ex.decode(h, x[:, i : i + 1], fetch=False))
+        return torch.cat(outs, 1)
+
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    out = asyncio.run(run())
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    with torch.no_grad():
+        ref = x
+        pos = torch.arange(604, device="cuda")[None]
+        cos, sin = rotary_cos_sin(pos, HD, spec.rope_theta)
+        for p in layers:
+            ref, _ = block_forward(p, spec, ref, cos, sin, dense_attend())
+    err = (out - ref).abs().max().item()
+    lim = 1e-3 * ref.abs().max().item()
+    say(f"[f32-group3] H=24 Hkv=8 hd=128, 2 layers: prefill 600 + 4 decodes "
+        f"on the dense routes (paged_supported={ex.paged_supported}, "
+        f"flash_supported={ex.flash_supported}) vs dense reference: "
+        f"max_abs_err={err:.3e} (limit {lim:.3e}), launches {launches}")
+    if (ex.paged_supported or ex.flash_supported or launches
+            or not err <= lim or not torch.isfinite(out).all().item()):
+        raise AssertionError("group-3 routing check failed")
+
+
+class WireChain:
+    """One client session over a chain of port servers, driven as the JAX
+    client drives it (bloombee_tpu/client/session.py `_open_span`,
+    `_step_once`): one rpc_inference stream per server with the client's
+    open meta, every step sent to the first server with a push `route`
+    through the rest; the first servers ack, the last replies the
+    output."""
+
+    def __init__(self, route):
+        self.route = route  # [(host, port, start, end)] in block order
+
+    async def open(self, batch: int, max_length: int) -> "WireChain":
+        import uuid
+
+        from bloombee_tpu_torch.wire.rpc import connect
+
+        self.batch, self.step_id = batch, 0
+        self.conns, self.streams, self.ids = [], [], []
+        for host, port, start, end in self.route:
+            conn = await connect(host, port)
+            sid = f"sess-{uuid.uuid4().hex[:12]}"
+            self.streams.append(await conn.open_stream("rpc_inference", {
+                "session_id": sid, "batch_size": batch,
+                "max_length": max_length, "start": start, "end": end,
+                "client_id": "chip_smoke",
+            }))
+            self.conns.append(conn)
+            self.ids.append(sid)
+        return self
+
+    async def step(self, hidden):
+        """hidden: [B, T, D] on the host in the first server's wire dtype.
+        Returns (output, every server's reply meta, round-trip seconds)."""
+        meta = {
+            "step": self.step_id, "commit": True, "tree": False,
+            "deadline_s": 120.0, "reply": "tensor", "mb": 0, "mb_of": 1,
+            "rows": [0, self.batch],
+            "route": [
+                {"host": h, "port": p, "session_id": sid}
+                for (h, p, _, _), sid in zip(self.route[1:], self.ids[1:])
+            ],
+        }
+        self.step_id += 1
+        t0 = time.perf_counter()
+        await self.streams[0].send(meta, [hidden])
+        metas, out = [], None
+        for stream in self.streams:
+            item = await stream.recv()
+            if item is None:
+                raise RuntimeError("a server closed the session mid-step")
+            metas.append(item[0])
+            if not item[0].get("ack"):
+                out = item[1][0]
+        return out, metas, time.perf_counter() - t0
+
+    async def close(self):
+        for stream in self.streams:
+            await stream.close()
+        for conn in self.conns:
+            await conn.close()
+
+
+async def registry_route(reg_port: int, uid: str, n_blocks: int):
+    """[(host, port, start, end)] covering blocks [0, n_blocks), read from
+    the registry's records as a client reads them."""
+    from bloombee_tpu_torch.swarm.registry import RegistryClient
+
+    reader = RegistryClient("127.0.0.1", reg_port)
+    infos = await reader.get_module_infos(uid, range(n_blocks))
+    await reader.close()
+    route, block = [], 0
+    while block < n_blocks:
+        (info,) = infos[block].servers.values()
+        route.append((info.host, info.port, info.start_block, info.end_block))
+        block = info.end_block
+    return route
+
+
+async def start_span_servers(layers, spec, uid, spans, dtype, num_pages):
+    """A port registry and one port BlockServer per span [(start, end)] on
+    the card, over slices of `layers` (shared tensors, no copy)."""
+    from bloombee_tpu_torch.server.block_server import BlockServer
+    from bloombee_tpu_torch.swarm.registry import (
+        RegistryClient,
+        RegistryServer,
+    )
+
+    reg = RegistryServer(host="127.0.0.1")
+    await reg.start()
+    servers = []
+    for start, end in spans:
+        server = BlockServer(
+            model_uid=uid, start=start, end=end, params=layers[start:end],
+            spec=spec, registry=RegistryClient("127.0.0.1", reg.port),
+            num_pages=num_pages, page_size=PS, compute_dtype=dtype,
+            max_chunk_tokens=512, throughput=1.0, device="cuda",
+        )
+        await server.start()
+        servers.append(server)
+    return reg, servers
+
+
+async def stop_span_servers(reg, servers):
+    for server in servers:
+        await server.stop()
+        await server.registry.close()
+    await reg.stop()
+
+
+def f32_served(layers, client, spec, fed, want_out, want_greedy):
+    """Phase 3, served: two port BlockServers on the card over the same 4
+    layers (blocks [0, 2) and [2, 4)) and a port registry; one batch-2
+    session through push routing prefills the 1000 tokens and runs 8
+    greedy decodes. Outputs must match the executor's within 1e-3 x
+    max|ref| with identical greedy tokens."""
+    import torch
+
+    from bloombee_tpu_torch.models.head import embed_impl, norm_head_impl
+
+    def head(h):
+        return norm_head_impl(client, h, spec.rms_norm_eps).argmax(-1)
+
+    async def run():
+        reg, servers = await start_span_servers(
+            layers, spec, "chip-f32", ((0, 2), (2, 4)), torch.float32, 256
+        )
+        try:
+            route = await registry_route(reg.port, "chip-f32", 4)
+            chain = await WireChain(route).open(2, 1100)
+            hid = embed_impl(client, fed[:, :1000]).cpu()
+            outs, greedy = [], []
+            for _ in range(9):
+                out, _, _ = await chain.step(hid)
+                outs.append(out)
+                nxt = head(out[:, -1].cuda())
+                greedy.append(nxt)
+                hid = embed_impl(client, nxt[:, None]).cpu()
+            await chain.close()
+            return route, torch.cat(outs[:9], 1), torch.stack(greedy, 1)
+        finally:
+            await stop_span_servers(reg, servers)
+
+    route, out, greedy = asyncio.run(run())
+    ref = want_out[:, :1008].cpu()
+    err = (out - ref).abs().max().item()
+    lim = 1e-3 * ref.abs().max().item()
+    same = torch.equal(greedy, want_greedy)
+    say(f"[f32-served] 2 port servers {[r[2:] for r in route]} via a port "
+        f"registry, push route: prefill 1000 x2 + 8 greedy decodes vs the "
+        f"executor: max_abs_err={err:.3e} (limit {lim:.3e}), greedy tokens "
+        f"identical: {same}")
+    if not (err <= lim and same and torch.isfinite(out).all().item()):
+        raise AssertionError("f32 served chain check failed")
 
 
 # ------------------------------------------------------------- phase 4
@@ -1778,6 +2021,220 @@ def phase_serving(profile: bool = False) -> dict[str, dict]:
             f"{chunk} chunk launches on the serving path, want one per layer "
             f"for the follow-up turn and the tree verify "
             f"({2 * spec.num_hidden_layers})"
+        )
+    torch.cuda.empty_cache()
+    launches["served"] = phase_served(layers, spec, client, gen)
+    return launches
+
+
+# ------------------------------------------------------------- phase 5
+def phase_served(layers, spec, client, gen) -> dict:
+    """Phase 5: the whole Llama-3-8B served on the wire. Two port
+    BlockServers on the card over phase 4's weights (blocks [0, 16) and
+    [16, 32), 1024-page arenas each) and a port registry; four concurrent
+    sessions through push each prefill 1000 tokens, run 32 greedy decode
+    steps and one 24-token follow-up turn. The same sessions run solo on
+    one in-process SpanExecutor with the server's calls (prefill for T>1,
+    B=1 decode for T=1). Returns the served run's launch counts."""
+    import torch
+
+    from bloombee_tpu_torch.kv.cache_manager import CacheManager
+    from bloombee_tpu_torch.models.head import embed_impl, norm_head_impl
+    from bloombee_tpu_torch.ops.cuda import build
+    from bloombee_tpu_torch.runtime.executor import SpanExecutor
+    from bloombee_tpu_torch.wire import tensor_codec
+
+    bf16, vocab, n_steps = torch.bfloat16, spec.vocab_size, 32
+    n_layers = spec.num_hidden_layers
+    spans = ((0, n_layers // 2), (n_layers // 2, n_layers))
+    prompts = torch.randint(0, vocab, (4, 1000), generator=gen, device="cuda")
+    follows = torch.randint(0, vocab, (4, 24), generator=gen, device="cuda")
+
+    def head(h):
+        return norm_head_impl(client, h, spec.rms_norm_eps).argmax(-1)
+
+    def reference():
+        manager = CacheManager(n_layers, 1024, PS, HKV, HD, dtype=bf16,
+                               device="cuda")
+        ex = SpanExecutor(layers, spec, manager, max_chunk_tokens=512,
+                          compute_dtype=bf16, device="cuda")
+        sessions, step_s = [], []
+
+        async def run():
+            for i in range(4):
+                async with manager.allocate(1, 1100) as h:
+                    out = ex.prefill(h, embed_impl(client, prompts[i : i + 1]),
+                                     fetch=False)
+                    last, tokens = [out[:, -1]], [head(out[:, -1])]
+                    for _ in range(n_steps):
+                        hid = embed_impl(client, tokens[-1][:, None])
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        out = ex.decode(h, hid, fetch=False)
+                        torch.cuda.synchronize()
+                        step_s.append(time.perf_counter() - t0)
+                        last.append(out[:, -1])
+                        tokens.append(head(out[:, -1]))
+                    out = ex.prefill(h, embed_impl(client, follows[i : i + 1]),
+                                     fetch=False)
+                    last.append(out[:, -1])
+                    tokens.append(head(out[:, -1]))
+                    sessions.append((torch.cat(last).cpu(), torch.cat(tokens)))
+
+        asyncio.run(run())
+        del ex, manager
+        return sessions, step_s
+
+    ref_sessions, ref_step_s = reference()
+    torch.cuda.empty_cache()
+
+    def next_input(out):
+        """The client's work between steps, off the event loop the servers
+        share: greedy token on the card, its embedding back to the host."""
+        nxt = head(out[:, -1].cuda())
+        return nxt, embed_impl(client, nxt[:, None]).cpu()
+
+    async def session(i, route):
+        chain = await WireChain(route).open(1, 1100)
+        hid = await asyncio.to_thread(
+            lambda: embed_impl(client, prompts[i : i + 1]).cpu()
+        )
+        out, _, prefill_s = await chain.step(hid)
+        last, tokens, step_s, replies = [out[:, -1]], [], [], []
+        for _ in range(n_steps):
+            nxt, hid = await asyncio.to_thread(next_input, out)
+            tokens.append(nxt)
+            out, metas, dt = await chain.step(hid)
+            step_s.append(dt)
+            replies.append(metas)
+            last.append(out[:, -1])
+        nxt, _ = await asyncio.to_thread(next_input, out)
+        tokens.append(nxt)
+        hid = await asyncio.to_thread(
+            lambda: embed_impl(client, follows[i : i + 1]).cpu()
+        )
+        out, _, _ = await chain.step(hid)
+        last.append(out[:, -1])
+        tokens.append((await asyncio.to_thread(next_input, out))[0])
+        return chain, prefill_s, step_s, replies, (
+            torch.cat(last), torch.cat(tokens)
+        ), out
+
+    async def served():
+        reg, servers = await start_span_servers(
+            layers, spec, "llama3-8b", spans, bf16, 1024
+        )
+        try:
+            route = await registry_route(reg.port, "llama3-8b", n_layers)
+            torch.cuda.synchronize()
+            build.reset_launch_counts()
+            before = tensor_codec.transport_stats()
+            t0 = time.perf_counter()
+            runs = await asyncio.gather(*(session(i, route) for i in range(4)))
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            launches = dict(build.LAUNCHES)
+            after = tensor_codec.transport_stats()
+            # 8 more decode steps of session 0 alone: the served step
+            # without other sessions in the queues, and its wire bytes
+            chain, out = runs[0][0], runs[0][5]
+            one0 = tensor_codec.transport_stats()["tx"]
+            alone = []
+            for _ in range(8):
+                _, hid = await asyncio.to_thread(next_input, out)
+                out, metas, dt = await chain.step(hid)
+                alone.append((dt, metas))
+            one1 = tensor_codec.transport_stats()["tx"]
+            for run in runs:
+                await run[0].close()
+            return route, runs, launches, wall_s, (before, after), (
+                one0, one1, alone
+            )
+        finally:
+            await stop_span_servers(reg, servers)
+
+    route, runs, launches, wall_s, (st0, st1), (one0, one1, alone) = (
+        asyncio.run(served())
+    )
+    ok = True
+    worst = 0.0
+    for (_, _, _, _, (last, tokens), _), (ref_last, ref_tokens) in zip(
+        runs, ref_sessions
+    ):
+        diff = (last.float() - ref_last.float()).abs()
+        worst = max(worst, diff.max().item())
+        ok = ok and torch.equal(tokens, ref_tokens) and bool(
+            (diff <= 1e-2 * ref_last.float().abs() + 1e-3).all()
+        ) and torch.isfinite(last.float()).all().item()
+
+    def med(xs):
+        xs = sorted(xs)
+        return xs[len(xs) // 2]
+
+    per_session_ms = [med(r[2]) * 1e3 for r in runs]
+    hop_ms = {
+        f"server{k}": {
+            key: med([m[k][key] for r in runs for m in r[3]])
+            for key in ("t_dispatch_ms", "t_fetch_ms")
+        }
+        for k in range(len(route))
+    }
+    one = {k: (one1[k] - one0[k]) / len(alone)
+           for k in ("n", "raw_bytes", "wire_bytes", "compressed")}
+    alone_ms = {
+        "decode_step_ms_median": med([dt for dt, _ in alone]) * 1e3,
+        **{
+            f"server{k}_{key}": med([m[k][key] for _, m in alone])
+            for k in range(len(route))
+            for key in ("t_dispatch_ms", "t_fetch_ms")
+        },
+    }
+    total = {k: st1["tx"][k] - st0["tx"][k]
+             for k in ("n", "raw_bytes", "wire_bytes", "compressed")}
+    # codec seconds, summed over the threads that ran them
+    total["encode_s"] = st1["tx"]["s"] - st0["tx"]["s"]
+    total["decode_s"] = st1["rx"]["s"] - st0["rx"]["s"]
+    stats = {
+        "route": [list(r[2:]) for r in route],
+        "served_run_s": wall_s,
+        "prefill_round_trip_ms": [r[1] * 1e3 for r in runs],
+        "served_decode_step_ms_median_per_session": per_session_ms,
+        "reference_decode_step_ms_median": med(ref_step_s) * 1e3,
+        "reply_ms_median": hop_ms,
+        "one_session_alone": alone_ms,
+        "decode_step_wire": one,
+        "served_run_wire": total,
+        "codecs": sorted(tensor_codec.supported_codecs()),
+        "tokens_identical_and_close": ok,
+        "last_hidden_max_abs_err": worst,
+    }
+    say(f"[served] Llama-3-8B bf16 over {stats['route']} via a port "
+        f"registry, 4 concurrent sessions x (prefill 1000, {n_steps} greedy "
+        f"decodes, 24-token follow-up) vs the same sessions solo on one "
+        f"executor: greedy tokens identical and last hidden states within "
+        f"1e-2|ref|+1e-3: {ok} (max_abs_err {worst:.3e}); prefill round "
+        f"trips {[round(x, 2) for x in stats['prefill_round_trip_ms']]} ms; "
+        f"client-observed decode step medians "
+        f"{[round(x, 3) for x in per_session_ms]} ms vs the executor's solo "
+        f"step {stats['reference_decode_step_ms_median']:.3f} ms; replies' "
+        f"medians {hop_ms}; one session alone (8 more steps) "
+        f"{alone_ms['decode_step_ms_median']:.3f} ms; a decode step moves "
+        f"{one['n']:.0f} tensors, {one['wire_bytes']:.0f} payload bytes "
+        f"({one['compressed']:.0f} compressed; codecs {stats['codecs']}); "
+        f"launches {launches}")
+    say("[served] " + json.dumps(stats))
+    say(card_line())
+    if not ok:
+        raise AssertionError("served run differs from the solo executor")
+    missing = [k for k in ("flash_attention", "paged_decode_attention",
+                           "paged_chunk_attention") if not launches.get(k)]
+    if missing:
+        raise AssertionError(f"served run never launched {missing}")
+    per_step = launches["paged_decode_attention"] / (4 * n_steps)
+    if per_step != spec.num_hidden_layers:
+        raise AssertionError(
+            f"{per_step} decode launches per served session step, want one "
+            f"per layer ({spec.num_hidden_layers})"
         )
     return launches
 

@@ -1,10 +1,12 @@
-"""The port imports nothing of JAX or of the JAX package, and chip_smoke.py
-refuses to run without a GPU.
+"""The port imports nothing of JAX or of the JAX package, nor a package the
+card's machine lacks, and chip_smoke.py refuses to run without a GPU.
 
 Both checks run in one fresh interpreter (the test process itself has JAX
-loaded, for the parity tests): it blocks `jax` and `bloombee_tpu` in
-`sys.meta_path`, imports every module of the port and chip_smoke.py, then
-runs chip_smoke's entry point and reports what it printed."""
+loaded, for the parity tests): it blocks `jax`, `bloombee_tpu`, `msgpack`,
+`ml_dtypes` and `zstandard` in `sys.meta_path` (zstd is optional in the
+port's wire, so blocking it must fail no import), imports every module of
+the port and chip_smoke.py, then runs chip_smoke's entry point and reports
+what it printed."""
 
 import json
 import pathlib
@@ -18,9 +20,12 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 PROBE = r"""
 import contextlib, importlib, importlib.abc, io, json, pkgutil, sys
 
+BLOCKED = ("jax", "jaxlib", "bloombee_tpu", "msgpack", "ml_dtypes",
+           "zstandard")
+
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "bloombee_tpu"):
+        if name.split(".")[0] in BLOCKED:
             raise ImportError(f"blocked import of {name}")
         return None
 
@@ -31,7 +36,7 @@ names = [m.name for m in pkgutil.walk_packages(
 for name in names:
     importlib.import_module(name)
 import chip_smoke
-leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "bloombee_tpu")]
+leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 import torch
 stdout = io.StringIO()
 sys.argv = ["chip_smoke.py"]
@@ -55,8 +60,17 @@ def probe():
 
 def test_port_imports_with_jax_and_the_jax_package_blocked(probe):
     assert not probe["leaked"]
-    assert "bloombee_tpu_torch.runtime.executor" in probe["modules"]
-    assert len(probe["modules"]) >= 20  # every module was walked
+    for name in (
+        "bloombee_tpu_torch.runtime.executor",
+        "bloombee_tpu_torch.wire.packer",
+        "bloombee_tpu_torch.wire.tensor_codec",
+        "bloombee_tpu_torch.wire.rpc",
+        "bloombee_tpu_torch.swarm.registry",
+        "bloombee_tpu_torch.server.block_server",
+        "bloombee_tpu_torch.server.compute_queue",
+    ):
+        assert name in probe["modules"]
+    assert len(probe["modules"]) >= 40  # every module was walked
 
 
 def test_chip_smoke_fails_without_a_gpu(probe):

@@ -30,7 +30,7 @@ from bloombee_tpu_torch.models.llama.block import params_from_jax
 from bloombee_tpu_torch.models.spec import ModelSpec
 from bloombee_tpu_torch.ops.cuda import paged_attention as t_paged
 from bloombee_tpu_torch.runtime.executor import SpanExecutor
-from test_torch_slice import SPEC, count_routes, model_and_inputs
+from test_torch_slice import HD, SPEC, count_routes, model_and_inputs
 
 # jitted as the JAX executor runs them (and one compile each, not one per
 # eager op)
@@ -133,7 +133,7 @@ def test_int4_arena_executor_matches_jax(monkeypatch):
         return np.asarray(logits.argmax(-1))
 
     jm = JaxManager(
-        num_layers=2, num_pages=64, page_size=16, n_kv_heads=2, head_dim=16,
+        num_layers=2, num_pages=64, page_size=16, n_kv_heads=2, head_dim=HD,
         dtype=jnp.float32, quant="int4",
     )
     jex = JaxExecutor(params, JaxSpec(**SPEC), jm, compute_dtype=jnp.float32)
@@ -152,7 +152,7 @@ def test_int4_arena_executor_matches_jax(monkeypatch):
     )
     monkeypatch.setenv("BBTPU_PAGED_MIN_CONTEXT", "0")
     tm = CacheManager(
-        2, 64, 16, 2, 16, dtype=torch.float32, device="cpu", quant="int4"
+        2, 64, 16, 2, HD, dtype=torch.float32, device="cpu", quant="int4"
     )
     assert isinstance(tm.arena["k"], t_quant.QuantSlab)
     tex = SpanExecutor(

@@ -40,7 +40,7 @@ from bloombee_tpu_torch.runtime.executor import (
     SpanExecutor,
     plan_prefill_chunks,
 )
-from test_torch_slice import SPEC, TOL, model_and_inputs
+from test_torch_slice import HD, SPEC, TOL, model_and_inputs
 
 ATOL = 1e-5
 
@@ -135,7 +135,7 @@ def test_write_slots_ragged_matches_jax():
 def tiny_executor(pages=64, page_size=16, max_chunk_tokens=512):
     params, client, _ = model_and_inputs()
     manager = CacheManager(
-        2, pages, page_size, 2, 16, dtype=torch.float32, device="cpu"
+        2, pages, page_size, 2, HD, dtype=torch.float32, device="cpu"
     )
     ex = SpanExecutor(
         params_from_jax(params, device="cpu"), ModelSpec(**SPEC), manager,
@@ -262,7 +262,7 @@ def run_mix(manager, ex, mix, seed, solo=False, group="ragged_group"):
 def test_ragged_group_matches_jax(monkeypatch, mix, group):
     params, _, _ = model_and_inputs()
     jm = JaxManager(
-        num_layers=2, num_pages=64, page_size=16, n_kv_heads=2, head_dim=16,
+        num_layers=2, num_pages=64, page_size=16, n_kv_heads=2, head_dim=HD,
         dtype=jnp.float32,
     )
     jex = JaxExecutor(params, JaxSpec(**SPEC), jm, compute_dtype=jnp.float32)
@@ -310,7 +310,7 @@ def test_tree_rows_refuse_sliding_window_layers():
     """The ragged gate of this slice: tree rows need full-attention layers;
     causal ragged dispatches take sliding windows."""
     params, _, _ = model_and_inputs()
-    manager = CacheManager(2, 8, 16, 2, 16, torch.float32, device="cpu")
+    manager = CacheManager(2, 8, 16, 2, HD, torch.float32, device="cpu")
     ex = SpanExecutor(
         params_from_jax(params, device="cpu"),
         ModelSpec(**SPEC, layer_types=("sliding", "full"), sliding_window=8),
