@@ -1,11 +1,12 @@
-"""Fault-coverage ledger (the fault half of bloombee_tpu/utils/ledger.py;
-the port has no recovery path yet).
+"""Fault and recovery coverage ledger (a copy of the counters of
+bloombee_tpu/utils/ledger.py).
 
-Every fault-injection site calls ``fault(name)``; the counters are
-process-wide and thread-safe. With ``BBTPU_CHAOS_LEDGER`` set, the process
-appends one JSON line ``{"faults": {...}, "recoveries": {}}`` to that path
-at exit, in the JAX package's format, so one reader merges both packages'
-lines.
+Every fault-injection site calls ``fault(name)`` and every exercised
+recovery path ``recovery(name)`` (the client's ban, overload backoff,
+quarantine and reroute-and-replay); the counters are process-wide and
+thread-safe. With ``BBTPU_CHAOS_LEDGER`` set, the process appends one JSON
+line ``{"faults": {...}, "recoveries": {...}}`` to that path at exit, in
+the JAX package's format, so one reader merges both packages' lines.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ env.declare(
 
 _lock = threading.Lock()
 _faults: collections.Counter = collections.Counter()
+_recoveries: collections.Counter = collections.Counter()
 _atexit_registered = False
 
 
@@ -43,9 +45,22 @@ def fault(name: str, n: int = 1) -> None:
     _ensure_atexit()
 
 
+def recovery(name: str, n: int = 1) -> None:
+    """Record an exercised recovery path at a named point."""
+    with _lock:
+        _recoveries[name] += n
+    _ensure_atexit()
+
+
 def snapshot() -> dict:
     with _lock:
-        return {"faults": dict(_faults), "recoveries": {}}
+        return {"faults": dict(_faults), "recoveries": dict(_recoveries)}
+
+
+def reset() -> None:
+    with _lock:
+        _faults.clear()
+        _recoveries.clear()
 
 
 def flush(path: str | None = None) -> None:
@@ -54,7 +69,7 @@ def flush(path: str | None = None) -> None:
     if not path:
         return
     snap = snapshot()
-    if not snap["faults"]:
+    if not snap["faults"] and not snap["recoveries"]:
         return
     try:
         with open(path, "a") as f:

@@ -37,10 +37,11 @@ Phases:
    solo and the dense attend_ragged route; and an int4 arena's 8 greedy
    decodes on the int4 kernel must match its dense route (same limit,
    identical greedy tokens). Served: a port registry and two port
-   BlockServers over the same 4 layers (blocks [0, 2) and [2, 4)); one
-   batch-2 session through push routing (the JAX client's frames) prefills
-   the 1000 tokens and runs 8 greedy decodes, matching the executor (same
-   limit, identical greedy tokens). Routing: H=24, Hkv=8 (GQA group 3,
+   BlockServers over the same 4 layers (blocks [0, 2) and [2, 4)); the
+   port client (`DistributedModelForCausalLM`, f32 parameters, push
+   routing) generates 9 greedy tokens for the batch-2 1000-token prompt
+   (a prefill and 8 decode steps), matching the executor (same limit,
+   identical greedy tokens). Routing: H=24, Hkv=8 (GQA group 3,
    outside the kernels' domain), 2 layers, a 600-token prefill and 4
    decodes take the dense routes (no paged or flash launch) and match
    `block_forward` + `dense_attend` (same limit).
@@ -63,16 +64,21 @@ Phases:
    launch per layer for each of its two T>1 steps.
 5. Served in bf16 over phase 4's weights (no second copy): a port registry
    and two port BlockServers on the card (blocks [0, 16) and [16, 32),
-   1024-page arenas); four concurrent sessions through push (the JAX
-   client's frames, over the port's wire) each prefill 1000 tokens, run 32
-   greedy decode steps and a 24-token follow-up turn. The same sessions
-   solo on one SpanExecutor with the server's calls must give identical
-   greedy tokens, and last-position hidden states within 1e-2 x |ref| +
-   1e-3 each. The launch counts of the served run (path "served") must
-   show flash, paged decode and paged chunk, and exactly one decode launch
-   per layer per session step. Prints the prefill round trips, the
-   client-observed decode step beside the executor's solo step, the
-   replies' dispatch and fetch medians, the bytes a decode step moves on
+   1024-page arenas) on one event loop, and four concurrent sessions of
+   the port client (`DistributedModelForCausalLM` over phase 4's bf16
+   client parameters, a `RemoteSequenceManager` over the port registry,
+   push) on another: each `generate`s 32 greedy tokens from a 1000-token
+   prompt, then on the same session a 24-token follow-up turn with 2 more
+   tokens. The same sessions solo on one SpanExecutor with the server's
+   calls, their tokens picked by the client's own head on the executor's
+   output gathered in f32, must give identical greedy tokens and
+   last-position hidden states within 1e-2 x |ref| + 1e-3 each. The
+   launch counts of the served run (path "served") must show flash, paged
+   decode and paged chunk, and exactly one decode launch per layer per
+   session step. Prints each session's time to first token (prefill round
+   trip + head, codec default) and per-token time (step + head + embed),
+   its `timing_summary()`, the head's device time, the replies' dispatch
+   and fetch medians, one session alone, the bytes a decode step moves on
    the wire, and the card's name and power limit.
 
 Prints the card's name and power limit, per-phase results, a
@@ -1472,82 +1478,29 @@ def f32_group3():
         raise AssertionError("group-3 routing check failed")
 
 
-class WireChain:
-    """One client session over a chain of port servers, driven as the JAX
-    client drives it (bloombee_tpu/client/session.py `_open_span`,
-    `_step_once`): one rpc_inference stream per server with the client's
-    open meta, every step sent to the first server with a push `route`
-    through the rest; the first servers ack, the last replies the
-    output."""
+class ServerLoop:
+    """An event loop in a background thread for the port registry and
+    servers, so the client's loop (the caller's `asyncio.run`) and its
+    device syncs never stall the servers' RPC handling."""
 
-    def __init__(self, route):
-        self.route = route  # [(host, port, start, end)] in block order
+    def __enter__(self) -> "ServerLoop":
+        import threading
 
-    async def open(self, batch: int, max_length: int) -> "WireChain":
-        import uuid
-
-        from bloombee_tpu_torch.wire.rpc import connect
-
-        self.batch, self.step_id = batch, 0
-        self.conns, self.streams, self.ids = [], [], []
-        for host, port, start, end in self.route:
-            conn = await connect(host, port)
-            sid = f"sess-{uuid.uuid4().hex[:12]}"
-            self.streams.append(await conn.open_stream("rpc_inference", {
-                "session_id": sid, "batch_size": batch,
-                "max_length": max_length, "start": start, "end": end,
-                "client_id": "chip_smoke",
-            }))
-            self.conns.append(conn)
-            self.ids.append(sid)
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(target=self.loop.run_forever,
+                                       daemon=True)
+        self.thread.start()
         return self
 
-    async def step(self, hidden):
-        """hidden: [B, T, D] on the host in the first server's wire dtype.
-        Returns (output, every server's reply meta, round-trip seconds)."""
-        meta = {
-            "step": self.step_id, "commit": True, "tree": False,
-            "deadline_s": 120.0, "reply": "tensor", "mb": 0, "mb_of": 1,
-            "rows": [0, self.batch],
-            "route": [
-                {"host": h, "port": p, "session_id": sid}
-                for (h, p, _, _), sid in zip(self.route[1:], self.ids[1:])
-            ],
-        }
-        self.step_id += 1
-        t0 = time.perf_counter()
-        await self.streams[0].send(meta, [hidden])
-        metas, out = [], None
-        for stream in self.streams:
-            item = await stream.recv()
-            if item is None:
-                raise RuntimeError("a server closed the session mid-step")
-            metas.append(item[0])
-            if not item[0].get("ack"):
-                out = item[1][0]
-        return out, metas, time.perf_counter() - t0
+    def run(self, coro, timeout: float = 600.0):
+        return asyncio.run_coroutine_threadsafe(coro, self.loop).result(
+            timeout
+        )
 
-    async def close(self):
-        for stream in self.streams:
-            await stream.close()
-        for conn in self.conns:
-            await conn.close()
-
-
-async def registry_route(reg_port: int, uid: str, n_blocks: int):
-    """[(host, port, start, end)] covering blocks [0, n_blocks), read from
-    the registry's records as a client reads them."""
-    from bloombee_tpu_torch.swarm.registry import RegistryClient
-
-    reader = RegistryClient("127.0.0.1", reg_port)
-    infos = await reader.get_module_infos(uid, range(n_blocks))
-    await reader.close()
-    route, block = [], 0
-    while block < n_blocks:
-        (info,) = infos[block].servers.values()
-        route.append((info.host, info.port, info.start_block, info.end_block))
-        block = info.end_block
-    return route
+    def __exit__(self, *exc) -> None:
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(30)
+        self.loop.close()
 
 
 async def start_span_servers(layers, spec, uid, spans, dtype, num_pages):
@@ -1581,48 +1534,97 @@ async def stop_span_servers(reg, servers):
     await reg.stop()
 
 
+def port_client(client, spec, reg_port, uid):
+    """The port's DistributedModelForCausalLM over the in-memory client
+    parameters, routing with a RemoteSequenceManager over the port
+    registry (push on). The caller closes `model.manager.registry`."""
+    from bloombee_tpu_torch.client import (
+        ClientConfig,
+        DistributedModelForCausalLM,
+        RemoteSequenceManager,
+    )
+    from bloombee_tpu_torch.swarm.registry import RegistryClient
+
+    manager = RemoteSequenceManager(
+        RegistryClient("127.0.0.1", reg_port), uid, spec.num_hidden_layers
+    )
+    return DistributedModelForCausalLM(
+        spec, client, manager, config=ClientConfig(use_push=True),
+        device="cuda",
+    )
+
+
+def tap(session, model) -> dict:
+    """Record, without changing them, what an open session's steps return
+    ("outs"), every reply meta its span streams receive ("metas": (span,
+    meta)) and when the model embeds ("embeds": host clock). generate
+    embeds the prompt first and then each token as soon as it is selected
+    (the selection's copy to the host has synchronized the device), so the
+    first gap is the time to the first token and later gaps are per-token
+    times: step + head + embed."""
+    rec = {"outs": [], "metas": [], "embeds": []}
+    step, embed = session.step, model.embed
+
+    async def tapped_step(*args, **kwargs):
+        out = await step(*args, **kwargs)
+        rec["outs"].append(out)
+        return out
+
+    def tapped_embed(ids):
+        rec["embeds"].append(time.perf_counter())
+        return embed(ids)
+
+    def tapped_recv(k, recv):
+        async def recv_meta():
+            item = await recv()
+            if item is not None:
+                rec["metas"].append((k, item[0]))
+            return item
+        return recv_meta
+
+    session.step, model.embed = tapped_step, tapped_embed
+    for k, span in enumerate(session._spans):
+        span.stream.recv = tapped_recv(k, span.stream.recv)
+    return rec
+
+
 def f32_served(layers, client, spec, fed, want_out, want_greedy):
     """Phase 3, served: two port BlockServers on the card over the same 4
-    layers (blocks [0, 2) and [2, 4)) and a port registry; one batch-2
-    session through push routing prefills the 1000 tokens and runs 8
-    greedy decodes. Outputs must match the executor's within 1e-3 x
-    max|ref| with identical greedy tokens."""
+    layers (blocks [0, 2) and [2, 4)) and a port registry; the port
+    client (f32 parameters) generates 9 greedy tokens through push
+    routing for the batch-2 prompt of 1000 tokens (a prefill and 8 decode
+    steps). Outputs must match the executor's within 1e-3 x max|ref| with
+    identical greedy tokens."""
     import torch
 
-    from bloombee_tpu_torch.models.head import embed_impl, norm_head_impl
-
-    def head(h):
-        return norm_head_impl(client, h, spec.rms_norm_eps).argmax(-1)
-
-    async def run():
-        reg, servers = await start_span_servers(
-            layers, spec, "chip-f32", ((0, 2), (2, 4)), torch.float32, 256
-        )
+    async def run(reg_port):
+        model = port_client(client, spec, reg_port, "chip-f32")
         try:
-            route = await registry_route(reg.port, "chip-f32", 4)
-            chain = await WireChain(route).open(2, 1100)
-            hid = embed_impl(client, fed[:, :1000]).cpu()
-            outs, greedy = [], []
-            for _ in range(9):
-                out, _, _ = await chain.step(hid)
-                outs.append(out)
-                nxt = head(out[:, -1].cuda())
-                greedy.append(nxt)
-                hid = embed_impl(client, nxt[:, None]).cpu()
-            await chain.close()
-            return route, torch.cat(outs[:9], 1), torch.stack(greedy, 1)
+            async with model.inference_session(1100, 2) as session:
+                rec = tap(session, model)
+                ids = await model.generate(fed[:, :1000], max_new_tokens=9,
+                                           session=session)
+                route = [(s.span.start, s.span.end) for s in session._spans]
         finally:
-            await stop_span_servers(reg, servers)
+            await model.manager.registry.close()
+        return route, torch.cat(rec["outs"], 1), ids[:, 1000:]
 
-    route, out, greedy = asyncio.run(run())
-    ref = want_out[:, :1008].cpu()
+    with ServerLoop() as servers_loop:
+        reg, servers = servers_loop.run(start_span_servers(
+            layers, spec, "chip-f32", ((0, 2), (2, 4)), torch.float32, 256
+        ))
+        try:
+            route, out, greedy = asyncio.run(run(reg.port))
+        finally:
+            servers_loop.run(stop_span_servers(reg, servers))
+    ref = want_out[:, :1008]
     err = (out - ref).abs().max().item()
     lim = 1e-3 * ref.abs().max().item()
-    same = torch.equal(greedy, want_greedy)
-    say(f"[f32-served] 2 port servers {[r[2:] for r in route]} via a port "
-        f"registry, push route: prefill 1000 x2 + 8 greedy decodes vs the "
-        f"executor: max_abs_err={err:.3e} (limit {lim:.3e}), greedy tokens "
-        f"identical: {same}")
+    same = torch.equal(greedy, want_greedy.cpu())
+    say(f"[f32-served] port client through 2 port servers {route} via a "
+        f"port registry, push route: prefill 1000 x2 + 8 greedy decodes vs "
+        f"the executor: max_abs_err={err:.3e} (limit {lim:.3e}), greedy "
+        f"tokens identical: {same}")
     if not (err <= lim and same and torch.isfinite(out).all().item()):
         raise AssertionError("f32 served chain check failed")
 
@@ -2029,29 +2031,35 @@ def phase_serving(profile: bool = False) -> dict[str, dict]:
 
 # ------------------------------------------------------------- phase 5
 def phase_served(layers, spec, client, gen) -> dict:
-    """Phase 5: the whole Llama-3-8B served on the wire. Two port
-    BlockServers on the card over phase 4's weights (blocks [0, 16) and
-    [16, 32), 1024-page arenas each) and a port registry; four concurrent
-    sessions through push each prefill 1000 tokens, run 32 greedy decode
-    steps and one 24-token follow-up turn. The same sessions run solo on
-    one in-process SpanExecutor with the server's calls (prefill for T>1,
-    B=1 decode for T=1). Returns the served run's launch counts."""
+    """Phase 5: the whole Llama-3-8B served on the wire to the port's own
+    client. Two port BlockServers on the card over phase 4's weights
+    (blocks [0, 16) and [16, 32), 1024-page arenas each) and a port
+    registry on one event loop; four port-client sessions (bf16 client
+    parameters, push) on another, concurrently: each `generate`s 32 greedy
+    tokens from a 1000-token prompt, then on the same session a 24-token
+    follow-up turn with 2 more tokens. The reference runs the same
+    sessions solo on one in-process SpanExecutor with the server's calls
+    (prefill for T>1, B=1 decode for T=1) and picks its tokens with the
+    client's own head on the executor's output, gathered in f32. Returns
+    the served run's launch counts."""
     import torch
 
+    from bloombee_tpu_torch.client import DistributedModelForCausalLM
     from bloombee_tpu_torch.kv.cache_manager import CacheManager
-    from bloombee_tpu_torch.models.head import embed_impl, norm_head_impl
     from bloombee_tpu_torch.ops.cuda import build
     from bloombee_tpu_torch.runtime.executor import SpanExecutor
     from bloombee_tpu_torch.wire import tensor_codec
 
-    bf16, vocab, n_steps = torch.bfloat16, spec.vocab_size, 32
+    bf16, vocab, n_new = torch.bfloat16, spec.vocab_size, 32
     n_layers = spec.num_hidden_layers
     spans = ((0, n_layers // 2), (n_layers // 2, n_layers))
     prompts = torch.randint(0, vocab, (4, 1000), generator=gen, device="cuda")
     follows = torch.randint(0, vocab, (4, 24), generator=gen, device="cuda")
+    local = DistributedModelForCausalLM(spec, client, None, device="cuda")
 
-    def head(h):
-        return norm_head_impl(client, h, spec.rms_norm_eps).argmax(-1)
+    def head(out):
+        """The client's greedy token from a step's f32-gathered output."""
+        return local.logits(out[:, -1:].float())[:, 0].argmax(-1)
 
     def reference():
         manager = CacheManager(n_layers, 1024, PS, HKV, HD, dtype=bf16,
@@ -2060,26 +2068,36 @@ def phase_served(layers, spec, client, gen) -> dict:
                           compute_dtype=bf16, device="cuda")
         sessions, step_s = [], []
 
+        def embed(ids):
+            return local.embed(ids).to(bf16)  # what the wire carries
+
+        def decode(h, token):
+            hid = embed(token[:, None])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = ex.decode(h, hid, fetch=False)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            return out
+
         async def run():
             for i in range(4):
                 async with manager.allocate(1, 1100) as h:
-                    out = ex.prefill(h, embed_impl(client, prompts[i : i + 1]),
-                                     fetch=False)
-                    last, tokens = [out[:, -1]], [head(out[:, -1])]
-                    for _ in range(n_steps):
-                        hid = embed_impl(client, tokens[-1][:, None])
-                        torch.cuda.synchronize()
-                        t0 = time.perf_counter()
-                        out = ex.decode(h, hid, fetch=False)
-                        torch.cuda.synchronize()
-                        step_s.append(time.perf_counter() - t0)
-                        last.append(out[:, -1])
-                        tokens.append(head(out[:, -1]))
-                    out = ex.prefill(h, embed_impl(client, follows[i : i + 1]),
-                                     fetch=False)
-                    last.append(out[:, -1])
-                    tokens.append(head(out[:, -1]))
-                    sessions.append((torch.cat(last).cpu(), torch.cat(tokens)))
+                    outs = [ex.prefill(h, embed(prompts[i : i + 1]),
+                                       fetch=False)]
+                    tokens = [head(outs[-1])]
+                    for _ in range(n_new - 1):
+                        outs.append(decode(h, tokens[-1]))
+                        tokens.append(head(outs[-1]))
+                    outs.append(ex.prefill(h, embed(follows[i : i + 1]),
+                                           fetch=False))
+                    tokens.append(head(outs[-1]))
+                    outs.append(decode(h, tokens[-1]))
+                    tokens.append(head(outs[-1]))
+                    sessions.append((
+                        torch.cat([o[:, -1] for o in outs]).float(),
+                        torch.cat(tokens).cpu(),
+                    ))
 
         asyncio.run(run())
         del ex, manager
@@ -2087,104 +2105,122 @@ def phase_served(layers, spec, client, gen) -> dict:
 
     ref_sessions, ref_step_s = reference()
     torch.cuda.empty_cache()
+    # the head's device time on one f32 position (bf16 parameters: the
+    # per-call upcast of lm_head to f32 included)
+    h1 = ref_sessions[0][0][-1:][None]
+    head_ms = cuda_ms(lambda: local.logits(h1))
+    head_bound = bound(nbytes(client["norm"], client["lm_head"], h1)
+                       + 4 * vocab, 2 * spec.hidden_size * vocab,
+                       torch.float32)
 
-    def next_input(out):
-        """The client's work between steps, off the event loop the servers
-        share: greedy token on the card, its embedding back to the host."""
-        nxt = head(out[:, -1].cuda())
-        return nxt, embed_impl(client, nxt[:, None]).cpu()
+    async def one_session(model, session, i):
+        ids = await model.generate(prompts[i : i + 1], max_new_tokens=n_new,
+                                   session=session)
+        more = await model.generate(follows[i : i + 1], max_new_tokens=2,
+                                    session=session)
+        return torch.cat([ids[0, -n_new:], more[0, -2:]])
 
-    async def session(i, route):
-        chain = await WireChain(route).open(1, 1100)
-        hid = await asyncio.to_thread(
-            lambda: embed_impl(client, prompts[i : i + 1]).cpu()
-        )
-        out, _, prefill_s = await chain.step(hid)
-        last, tokens, step_s, replies = [out[:, -1]], [], [], []
-        for _ in range(n_steps):
-            nxt, hid = await asyncio.to_thread(next_input, out)
-            tokens.append(nxt)
-            out, metas, dt = await chain.step(hid)
-            step_s.append(dt)
-            replies.append(metas)
-            last.append(out[:, -1])
-        nxt, _ = await asyncio.to_thread(next_input, out)
-        tokens.append(nxt)
-        hid = await asyncio.to_thread(
-            lambda: embed_impl(client, follows[i : i + 1]).cpu()
-        )
-        out, _, _ = await chain.step(hid)
-        last.append(out[:, -1])
-        tokens.append((await asyncio.to_thread(next_input, out))[0])
-        return chain, prefill_s, step_s, replies, (
-            torch.cat(last), torch.cat(tokens)
-        ), out
-
-    async def served():
-        reg, servers = await start_span_servers(
-            layers, spec, "llama3-8b", spans, bf16, 1024
-        )
+    async def served(reg_port):
+        models = [port_client(client, spec, reg_port, "llama3-8b")
+                  for _ in range(4)]
         try:
-            route = await registry_route(reg.port, "llama3-8b", n_layers)
-            torch.cuda.synchronize()
-            build.reset_launch_counts()
-            before = tensor_codec.transport_stats()
-            t0 = time.perf_counter()
-            runs = await asyncio.gather(*(session(i, route) for i in range(4)))
-            torch.cuda.synchronize()
-            wall_s = time.perf_counter() - t0
-            launches = dict(build.LAUNCHES)
-            after = tensor_codec.transport_stats()
-            # 8 more decode steps of session 0 alone: the served step
-            # without other sessions in the queues, and its wire bytes
-            chain, out = runs[0][0], runs[0][5]
-            one0 = tensor_codec.transport_stats()["tx"]
-            alone = []
-            for _ in range(8):
-                _, hid = await asyncio.to_thread(next_input, out)
-                out, metas, dt = await chain.step(hid)
-                alone.append((dt, metas))
-            one1 = tensor_codec.transport_stats()["tx"]
-            for run in runs:
-                await run[0].close()
-            return route, runs, launches, wall_s, (before, after), (
-                one0, one1, alone
-            )
+            async with contextlib.AsyncExitStack() as stack:
+                sessions = [
+                    await stack.enter_async_context(
+                        m.inference_session(1100, 1)
+                    )
+                    for m in models
+                ]
+                recs = [tap(s, m) for s, m in zip(sessions, models)]
+                torch.cuda.synchronize()
+                build.reset_launch_counts()
+                before = tensor_codec.transport_stats()
+                t0 = time.perf_counter()
+                tokens = await asyncio.gather(*(
+                    one_session(models[i], sessions[i], i) for i in range(4)
+                ))
+                torch.cuda.synchronize()
+                wall_s = time.perf_counter() - t0
+                launches = dict(build.LAUNCHES)
+                after = tensor_codec.transport_stats()
+                summaries = [s.timing_summary() for s in sessions]
+                firsts = [
+                    (len(r["embeds"]), len(r["metas"])) for r in recs
+                ]
+                # 8 more decode steps of session 0 alone: the served step
+                # without other sessions in the queues, and its wire bytes
+                k0 = len(sessions[0].timings)
+                tx0 = tensor_codec.transport_stats()["tx"]
+                await models[0].generate(tokens[0][-1:][None],
+                                         max_new_tokens=8,
+                                         session=sessions[0])
+                tx1 = tensor_codec.transport_stats()["tx"]
+                alone = {
+                    "timings": sessions[0].timings[k0:],
+                    "embeds": recs[0]["embeds"][firsts[0][0]:],
+                    "metas": recs[0]["metas"][firsts[0][1]:],
+                    "tx": (tx0, tx1),
+                }
+                route = [(s.span.start, s.span.end)
+                         for s in sessions[0]._spans]
         finally:
-            await stop_span_servers(reg, servers)
+            for m in models:
+                await m.manager.registry.close()
+        return (route, tokens, recs, firsts, summaries, launches, wall_s,
+                (before, after), alone)
 
-    route, runs, launches, wall_s, (st0, st1), (one0, one1, alone) = (
-        asyncio.run(served())
-    )
+    with ServerLoop() as servers_loop:
+        reg, servers = servers_loop.run(start_span_servers(
+            layers, spec, "llama3-8b", spans, bf16, 1024
+        ))
+        try:
+            (route, tokens, recs, firsts, summaries, launches, wall_s,
+             (st0, st1), alone) = asyncio.run(served(reg.port))
+        finally:
+            servers_loop.run(stop_span_servers(reg, servers))
+
     ok = True
     worst = 0.0
-    for (_, _, _, _, (last, tokens), _), (ref_last, ref_tokens) in zip(
-        runs, ref_sessions
-    ):
-        diff = (last.float() - ref_last.float()).abs()
+    for toks, rec, (ref_last, ref_tokens) in zip(tokens, recs, ref_sessions):
+        # the 34 steps of the 4-session run (the alone steps come after)
+        last = torch.cat([o[:, -1] for o in rec["outs"][: n_new + 2]])
+        diff = (last - ref_last).abs()
         worst = max(worst, diff.max().item())
-        ok = ok and torch.equal(tokens, ref_tokens) and bool(
-            (diff <= 1e-2 * ref_last.float().abs() + 1e-3).all()
-        ) and torch.isfinite(last.float()).all().item()
+        ok = ok and torch.equal(toks, ref_tokens) and bool(
+            (diff <= 1e-2 * ref_last.abs() + 1e-3).all()
+        ) and torch.isfinite(last).all().item()
 
     def med(xs):
         xs = sorted(xs)
         return xs[len(xs) // 2]
 
-    per_session_ms = [med(r[2]) * 1e3 for r in runs]
+    def gaps(ts):
+        return [(b - a) * 1e3 for a, b in zip(ts, ts[1:])]
+
+    # embeds of the first generate: the prompt, then tokens 1..31
+    ttft_ms = [gaps(r["embeds"][:2])[0] for r in recs]
+    per_token_ms = [med(gaps(r["embeds"][1:n_new])) for r in recs]
     hop_ms = {
         f"server{k}": {
-            key: med([m[k][key] for r in runs for m in r[3]])
+            key: med([m[key] for r, (_, m0) in zip(recs, firsts)
+                      for kk, m in r["metas"][:m0] if kk == k and key in m])
             for key in ("t_dispatch_ms", "t_fetch_ms")
         }
         for k in range(len(route))
     }
-    one = {k: (one1[k] - one0[k]) / len(alone)
+    tx0, tx1 = alone["tx"]
+    n_alone = len(alone["timings"])
+    one = {k: (tx1[k] - tx0[k]) / n_alone
            for k in ("n", "raw_bytes", "wire_bytes", "compressed")}
     alone_ms = {
-        "decode_step_ms_median": med([dt for dt, _ in alone]) * 1e3,
+        "decode_step_ms_median": med(
+            [t["total_ms"] for t in alone["timings"]]
+        ),
+        "per_token_ms_median": med(gaps(alone["embeds"])),
         **{
-            f"server{k}_{key}": med([m[k][key] for _, m in alone])
+            f"server{k}_{key}": med(
+                [m[key] for kk, m in alone["metas"] if kk == k and key in m]
+            )
             for k in range(len(route))
             for key in ("t_dispatch_ms", "t_fetch_ms")
         },
@@ -2195,10 +2231,18 @@ def phase_served(layers, spec, client, gen) -> dict:
     total["encode_s"] = st1["tx"]["s"] - st0["tx"]["s"]
     total["decode_s"] = st1["rx"]["s"] - st0["rx"]["s"]
     stats = {
-        "route": [list(r[2:]) for r in route],
+        "route": [list(r) for r in route],
         "served_run_s": wall_s,
-        "prefill_round_trip_ms": [r[1] * 1e3 for r in runs],
-        "served_decode_step_ms_median_per_session": per_session_ms,
+        "ttft_ms": ttft_ms,
+        "per_token_ms_median": per_token_ms,
+        "timing_summary": [
+            {k: s[k] for k in ("steps", "mean_total_ms",
+                               "mean_compute_ms_per_span",
+                               "mean_wire_and_overhead_ms")}
+            for s in summaries
+        ],
+        "head_ms": head_ms,
+        "head_bound_ms": head_bound[0],
         "reference_decode_step_ms_median": med(ref_step_s) * 1e3,
         "reply_ms_median": hop_ms,
         "one_session_alone": alone_ms,
@@ -2209,19 +2253,21 @@ def phase_served(layers, spec, client, gen) -> dict:
         "last_hidden_max_abs_err": worst,
     }
     say(f"[served] Llama-3-8B bf16 over {stats['route']} via a port "
-        f"registry, 4 concurrent sessions x (prefill 1000, {n_steps} greedy "
-        f"decodes, 24-token follow-up) vs the same sessions solo on one "
-        f"executor: greedy tokens identical and last hidden states within "
-        f"1e-2|ref|+1e-3: {ok} (max_abs_err {worst:.3e}); prefill round "
-        f"trips {[round(x, 2) for x in stats['prefill_round_trip_ms']]} ms; "
-        f"client-observed decode step medians "
-        f"{[round(x, 3) for x in per_session_ms]} ms vs the executor's solo "
-        f"step {stats['reference_decode_step_ms_median']:.3f} ms; replies' "
-        f"medians {hop_ms}; one session alone (8 more steps) "
-        f"{alone_ms['decode_step_ms_median']:.3f} ms; a decode step moves "
-        f"{one['n']:.0f} tensors, {one['wire_bytes']:.0f} payload bytes "
-        f"({one['compressed']:.0f} compressed; codecs {stats['codecs']}); "
-        f"launches {launches}")
+        f"registry, 4 concurrent port-client sessions x (generate 32 tokens "
+        f"from 1000, then a 24-token follow-up turn + 2 tokens) vs the same "
+        f"sessions solo on one executor + the client's head: greedy tokens "
+        f"identical and last hidden states within 1e-2|ref|+1e-3: {ok} "
+        f"(max_abs_err {worst:.3e}); time to first token "
+        f"{[round(x, 2) for x in ttft_ms]} ms; per-token medians "
+        f"{[round(x, 3) for x in per_token_ms]} ms (the executor's solo "
+        f"step {stats['reference_decode_step_ms_median']:.3f} ms); head "
+        f"{head_ms:.4f} ms on the device (bound {head_bound[0]:.4f} ms, "
+        f"{head_bound[1]}); replies' medians {hop_ms}; one session alone "
+        f"(8 more steps): step {alone_ms['decode_step_ms_median']:.3f} ms, "
+        f"per token {alone_ms['per_token_ms_median']:.3f} ms; a decode step "
+        f"moves {one['n']:.0f} tensors, {one['wire_bytes']:.0f} payload "
+        f"bytes ({one['compressed']:.0f} compressed; codecs "
+        f"{stats['codecs']}); launches {launches}")
     say("[served] " + json.dumps(stats))
     say(card_line())
     if not ok:
@@ -2230,7 +2276,7 @@ def phase_served(layers, spec, client, gen) -> dict:
                            "paged_chunk_attention") if not launches.get(k)]
     if missing:
         raise AssertionError(f"served run never launched {missing}")
-    per_step = launches["paged_decode_attention"] / (4 * n_steps)
+    per_step = launches["paged_decode_attention"] / (4 * n_new)
     if per_step != spec.num_hidden_layers:
         raise AssertionError(
             f"{per_step} decode launches per served session step, want one "

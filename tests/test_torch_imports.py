@@ -68,9 +68,16 @@ def test_port_imports_with_jax_and_the_jax_package_blocked(probe):
         "bloombee_tpu_torch.swarm.registry",
         "bloombee_tpu_torch.server.block_server",
         "bloombee_tpu_torch.server.compute_queue",
+        "bloombee_tpu_torch.client",
+        "bloombee_tpu_torch.client.config",
+        "bloombee_tpu_torch.client.integrity",
+        "bloombee_tpu_torch.client.model",
+        "bloombee_tpu_torch.client.sequence_manager",
+        "bloombee_tpu_torch.client.session",
+        "bloombee_tpu_torch.swarm.spans",
     ):
         assert name in probe["modules"]
-    assert len(probe["modules"]) >= 40  # every module was walked
+    assert len(probe["modules"]) >= 47  # every module was walked
 
 
 def test_chip_smoke_fails_without_a_gpu(probe):
