@@ -45,6 +45,14 @@ env.declare(
     "use the paged kernels only when the bucketed context is at least this "
     "many tokens (TPU-derived default, not yet measured on the GPU)",
 )
+env.declare(
+    "BBTPU_PREFILL_CHUNK", int, 0,
+    "stall-free scheduling (Sarathi-Serve): split prefills into chunks of "
+    "at most this many tokens, each a separate compute-queue task so "
+    "queued decode steps run between chunks (0 = monolithic prefill, one "
+    "queue task for the whole prompt). Rounded to a power of two so every "
+    "chunk lands in the same bucket",
+)
 
 
 def next_pow2(n: int, floor: int = 1) -> int:
@@ -256,6 +264,11 @@ class SpanExecutor:
         if has_tree and any(w > 0 for w in self.windows):
             return "sliding-window layers"
         return None
+
+    def mixed_unsupported(self) -> str | None:
+        """Why causal (decode + chunk) ragged dispatch is unavailable: the
+        server's mixed-batch gate, a delegation onto `ragged_unsupported`."""
+        return self.ragged_unsupported(has_tree=False)
 
     def mixed_group(
         self,

@@ -1,18 +1,34 @@
-"""BlockServer: one worker hosting blocks [start, end) of a model (the
-minimal port of bloombee_tpu/server/block_server.py).
+"""BlockServer: one worker hosting blocks [start, end) of a model (a port
+of bloombee_tpu/server/block_server.py).
 
 The same RPCs and frames as the JAX server, so a JAX client, a JAX registry
 and JAX servers work with it:
 
 - `rpc_inference` stream: one decode session. Items arrive from the client
   stream or, pushed by the previous span's server, through `rpc_push`; the
-  session loop races both. Each step is its own dispatch through the
-  compute queue (`executor.prefill` for T>1, `executor.decode` for T=1,
-  fetch=False), and the device-to-host fetch runs off the queue.
+  session loop races both. Steps dispatch through the compute queue
+  (fetch=False) and the device-to-host fetch runs off the queue:
+  - continuous batching (`max_batch`, default 8): plain committing
+    single-token decode steps of concurrent sessions that are queued
+    together (or arrive within `BBTPU_BATCH_WINDOW_MS`) share ONE span
+    dispatch (`executor.decode_group`); a failed merged dispatch rolls
+    back and replays row by row;
+  - stall-free chunked prefill (`prefill_chunk`, else
+    `BBTPU_PREFILL_CHUNK`; 0 = monolithic): a prefill becomes a stream of
+    chunk tasks at an aging priority, so decode steps run between chunks;
+    the last chunk commits the prompt, an abort frees its pages;
+  - mixed batch (`mixed_batch`, else `BBTPU_MIXED_BATCH`; off by default):
+    a prefill chunk and queued decode steps fuse into one ragged dispatch
+    (`executor.ragged_group`); decodes commit or roll back, the chunk
+    commits on its last chunk and is truncated on failure;
+  - every other step (prefills, speculative or ragged-replay steps) is
+    its own dispatch (`executor.prefill` for T>1, `executor.decode` for
+    T=1).
 - `rpc_push`: a step pushed by an upstream server (buffered briefly when it
   races ahead of its session's open). A step whose meta names a `route`
   pushes its output on to the next hop and acks its own stream.
-- `rpc_info`: the server's counters and its ServerInfo.
+- `rpc_info`: the server's counters (the JAX server's batching keys under
+  its names) and its ServerInfo.
 - A background announcer re-declares the span in the registry every
   `announce_period`, with expiration as the liveness signal.
 
@@ -21,7 +37,8 @@ whose meta asks for chained decode_n (`chain`, `decode_n`), KV replication
 or the prefix cache (`kv_repl`, `prefix_probe`) or speculative decoding
 (`accept`, `accept_only`, `tree`, `prune`) fails its session with an error
 frame naming the key; so does an open asking for a LoRA adapter or a
-session resume. The server advertises those features as off.
+session resume. The server advertises those features as off, and batches
+no tree-verify rows (there is no `spec_batch`).
 
 Two servers in one process on one card share the device's default stream:
 each launches from its own compute thread, the split kernels' counters are
@@ -41,15 +58,19 @@ import torch
 from bloombee_tpu_torch.kv.cache_manager import CacheManager
 from bloombee_tpu_torch.kv.quant import QuantSlab, slab_nbytes
 from bloombee_tpu_torch.models.spec import ModelSpec
-from bloombee_tpu_torch.runtime.executor import SpanExecutor
+from bloombee_tpu_torch.runtime.executor import (
+    SpanExecutor,
+    plan_prefill_chunks,
+)
 from bloombee_tpu_torch.server.compute_queue import (
     PRIORITY_INFERENCE,
     ComputeQueue,
     DeadlineExpired,
+    aged_chunk_priority,
 )
 from bloombee_tpu_torch.swarm.data import ServerInfo, ServerState
 from bloombee_tpu_torch.swarm.ping import PingAggregator
-from bloombee_tpu_torch.utils import clock, env, lockwatch
+from bloombee_tpu_torch.utils import clock, env, ledger, lockwatch
 from bloombee_tpu_torch.utils.device import resolve_device
 from bloombee_tpu_torch.wire.flow import FlowLimiter
 from bloombee_tpu_torch.wire.rpc import (
@@ -69,6 +90,17 @@ env.declare(
     "BBTPU_KV_QUANT", str, "none",
     "KV cache quantization of a server that is not told: none | int4 "
     "(group-wise 4-bit device arena)",
+)
+env.declare(
+    "BBTPU_MIXED_BATCH", bool, False,
+    "mixed-batch dispatch (Sarathi-Serve fused iterations): let a popped "
+    "prefill chunk absorb compatible queued single-token decode steps "
+    "(and vice versa) into ONE ragged span dispatch "
+    "(executor.ragged_group), so a mid-stream prefill no longer costs "
+    "decodes a whole dispatch each. Falls back to separate dispatches on "
+    "configs the ragged step doesn't cover, surfacing each declined "
+    "reason in rpc_info ragged_declines. Off = the decode-only batcher "
+    "and per-chunk prefill tasks",
 )
 
 # step-meta keys this server refuses, with what they ask for; a key asks
@@ -103,6 +135,37 @@ class _Session:
         self.sum_dispatch_ms = 0.0
         self.sum_fetch_ms = 0.0
         self.opened_at = 0.0
+
+
+class SessionKVLost(RuntimeError):
+    """The session's sequences no longer hold its KV: the step cannot run
+    on a zeroed context, so it fails and the client replays."""
+
+
+@dataclasses.dataclass
+class _BatchMember:
+    """One session's single-token decode step inside a merged dispatch
+    (continuous batching). `handle` is the session's cache handle or a row
+    slice of it (micro-batch chunks batch like any other member)."""
+
+    session: _Session
+    handle: object
+    hidden: torch.Tensor  # [b, 1, D] in the wire dtype
+
+
+@dataclasses.dataclass
+class _ChunkMember:
+    """One prefill chunk inside a MIXED dispatch (`mixed_batch`): the
+    multi-token member that rides a ragged span step alongside other
+    sessions' single-token decodes. `last` carries the chunk stream's
+    duty (the last chunk commits the prompt) into whichever dispatch runs
+    it. (The JAX member's `first`, which settles a prefix-cache adoption,
+    belongs to ROADMAP item 12.)"""
+
+    session: _Session
+    handle: object
+    hidden: torch.Tensor  # [b, t, D] in the wire dtype
+    last: bool
 
 
 class _PeerPool:
@@ -166,11 +229,23 @@ class BlockServer:
         page_size: int = 16,
         compute_dtype=torch.bfloat16,
         max_chunk_tokens: int = 512,
+        max_batch: int = 8,  # continuous batching: coalesce up to this
+        # many compatible single-token decode steps (across sessions) into
+        # one span dispatch; 1 disables the batcher. The gather window is
+        # BBTPU_BATCH_WINDOW_MS (default 0: only already-queued steps
+        # coalesce, so idle-server latency is untouched)
         announce_period: float = 5.0,
         alloc_timeout: float = 60.0,
         throughput: float = 1.0,
         kv_quant: str | None = None,  # None -> BBTPU_KV_QUANT
         keepalive_s: float | None = None,  # None -> BBTPU_KEEPALIVE_S
+        prefill_chunk: int | None = None,  # stall-free scheduling: split
+        # each plain prefill into chunks of at most this many tokens, each
+        # its own compute-queue task (0 = monolithic; None ->
+        # BBTPU_PREFILL_CHUNK)
+        mixed_batch: bool | None = None,  # fuse a prefill chunk and
+        # compatible queued decode steps into ONE ragged span dispatch
+        # (None -> BBTPU_MIXED_BATCH; off = decode-only batching)
         device="cuda",
     ):
         self.device = resolve_device(device)
@@ -210,7 +285,34 @@ class BlockServer:
         # executor's transfer dtype)
         self.wire_dtype = "bf16" if compute_dtype == torch.bfloat16 else "f32"
         self._wire_torch_dtype = dtype_for_name(self.wire_dtype)
-        self.compute = ComputeQueue(max_group=1)
+        self.max_batch = max(1, int(max_batch))
+        # ragged-path declines, per reason: a requested-but-unsupported
+        # fallback to separate dispatches is visible in rpc_info
+        self.ragged_declines: dict[str, int] = {}
+        if mixed_batch is None:
+            mixed_batch = bool(env.get("BBTPU_MIXED_BATCH"))
+        if mixed_batch:
+            reason = self.executor.mixed_unsupported()
+            if reason is not None:
+                logger.info("mixed-batch dispatch disabled: %s", reason)
+                self.ragged_declines[reason] = (
+                    self.ragged_declines.get(reason, 0) + 1
+                )
+                mixed_batch = False
+        self.mixed_batch = bool(mixed_batch)
+        if self.mixed_batch:
+            # one kind-aware gather predicate covers decode rows and the
+            # prefill chunk; the chunk rides one extra group slot so fusing
+            # never costs the batcher any of its max_batch seats
+            self.compute = ComputeQueue(
+                max_group=self.max_batch + 1,
+                compat=self._ragged_compat,
+                group_hint=self._batch_group_hint,
+            )
+        else:
+            self.compute = ComputeQueue(
+                max_group=self.max_batch, group_hint=self._batch_group_hint
+            )
         self.peers = _PeerPool()
         # measured RTTs to servers of the block after this span, announced
         # in ServerInfo.next_pings for routing
@@ -222,8 +324,30 @@ class BlockServer:
         # counters (rpc_info)
         self.deadlines_expired = 0
         self.pushes_dropped = 0
+        # continuous batching: member steps that shared a merged dispatch,
+        # merged dispatches issued, and batcher-routed steps that ran alone
+        # (width-1 pops, row-by-row replays after a failed merged dispatch)
+        self.batched_steps = 0
+        self.batch_dispatches = 0
+        self.batch_solo_steps = 0
+        # chunked prefill: the chunk budget (None -> BBTPU_PREFILL_CHUNK),
+        # chunks and tokens run, decode steps that dispatched while some
+        # session's prefill was mid-stream, and the live count of such
+        # mid-stream prefills
+        self.prefill_chunk = prefill_chunk
+        self.prefill_chunks = 0
+        self.prefill_chunk_tokens = 0
+        self.decode_steps_interleaved = 0
+        self._chunking_sessions = 0
+        # mixed batch: fused ragged dispatches and the tokens they carried;
+        # every inference dispatch counts in step_dispatches/step_tokens
+        self.mixed_dispatches = 0
+        self.mixed_tokens = 0
         self.step_dispatches = 0
         self.step_tokens = 0
+        # ragged dispatches, and those that mixed row kinds
+        self.ragged_group_dispatches = 0
+        self.ragged_cross_kind_dispatches = 0
         self.rpc = RpcServer(
             unary_handlers={"rpc_info": self._rpc_info},
             stream_handlers={"rpc_inference": self._rpc_inference},
@@ -387,7 +511,26 @@ class BlockServer:
             "active_sessions": len(self._sessions),
             "session_oldest_s": round(max(ages), 3) if ages else 0.0,
             "session_oldest_idle_s": round(max(idles), 3) if idles else 0.0,
+            # continuous batching, chunked prefill and mixed batch, under
+            # the JAX server's names
+            "batched_steps": self.batched_steps,
+            "batch_dispatches": self.batch_dispatches,
+            "batch_solo_steps": self.batch_solo_steps,
+            "mean_batch_width": (
+                self.batched_steps / self.batch_dispatches
+                if self.batch_dispatches else 0.0
+            ),
+            # includes per-class sub-dicts ("prefill"/"decode")
             "queue_wait_ms": self.compute.wait_stats_ms(),
+            "prefill_chunks": self.prefill_chunks,
+            "prefill_chunk_tokens": self.prefill_chunk_tokens,
+            "decode_steps_interleaved": self.decode_steps_interleaved,
+            "mixed_batch": self.mixed_batch,
+            "mixed_dispatches": self.mixed_dispatches,
+            "mixed_tokens": self.mixed_tokens,
+            "ragged_group_dispatches": self.ragged_group_dispatches,
+            "ragged_cross_kind_dispatches": self.ragged_cross_kind_dispatches,
+            "ragged_declines": dict(self.ragged_declines),
             "step_dispatches": self.step_dispatches,
             "step_tokens": self.step_tokens,
             "dispatches_per_token": (
@@ -571,11 +714,40 @@ class BlockServer:
         # dispatch on the serialized compute queue; the fetch runs here,
         # off the queue, so concurrent sessions overlap their round trips
         try:
-            out_dev, t_dispatch_ms = await self.compute.submit(
-                PRIORITY_INFERENCE, self._compute_step, session, handle,
-                hidden, commit, commit_lens, deadline=deadline,
-                task_class="prefill" if hidden.shape[1] > 1 else "decode",
-            )
+            if self._batchable(commit, hidden, commit_lens):
+                # continuous batching: compatible single-token decode steps
+                # of OTHER sessions that are queued right now (or arrive
+                # within BBTPU_BATCH_WINDOW_MS) share one merged span
+                # dispatch; this call still returns only our own rows. With
+                # mixed_batch the group may also hold a prefill chunk
+                out_dev, t_dispatch_ms = await self.compute.submit_group(
+                    PRIORITY_INFERENCE,
+                    ("decode1", session.layers, None, str(hidden.dtype)),
+                    _BatchMember(session, handle, hidden),
+                    self._compute_ragged_group
+                    if self.mixed_batch else self._compute_step_group,
+                    deadline=deadline,
+                    task_class="decode",
+                )
+            else:
+                spans = self._chunk_spans(hidden, commit, commit_lens)
+                if spans is not None:
+                    # stall-free scheduling: the prefill becomes a stream
+                    # of resumable chunk tasks re-entering the priority
+                    # queue, so other sessions' decode steps run between
+                    # chunks instead of stalling behind the whole prompt
+                    out_dev, t_dispatch_ms = await self._run_chunked_prefill(
+                        session, handle, hidden, spans, deadline
+                    )
+                else:
+                    out_dev, t_dispatch_ms = await self.compute.submit(
+                        PRIORITY_INFERENCE, self._compute_step, session,
+                        handle, hidden, commit, commit_lens,
+                        deadline=deadline,
+                        task_class=(
+                            "prefill" if hidden.shape[1] > 1 else "decode"
+                        ),
+                    )
         except DeadlineExpired:
             self._note_deadline_expired(meta, "while queued")
             return
@@ -637,6 +809,8 @@ class BlockServer:
         """Runs on the compute thread: plan packing + asynchronous device
         dispatch only (the fetch happens off the queue). Returns the
         device output and the dispatch time in ms."""
+        if not self.manager.epoch_valid(handle):
+            raise SessionKVLost("session cache lost: replay")
         session.last_step_at = clock.monotonic()
         t0 = clock.perf_counter()
         if hidden.shape[1] > 1:
@@ -645,6 +819,10 @@ class BlockServer:
                 fetch=False,
             )
         else:
+            if self._chunking_sessions:
+                # a decode step ran while some session's chunked prefill
+                # was mid-stream: the stall this scheduler removes
+                self.decode_steps_interleaved += 1
             out = self.executor.decode(
                 handle, hidden, commit=commit, layers=session.layers,
                 fetch=False,
@@ -654,6 +832,363 @@ class BlockServer:
         self.step_dispatches += 1
         self.step_tokens += int(hidden.shape[0]) * int(hidden.shape[1])
         return out, (clock.perf_counter() - t0) * 1000.0
+
+    # ------------------------------------------- stall-free chunked prefill
+    def _chunk_budget(self) -> int:
+        """Per-prefill chunk token budget: the constructor's value wins,
+        else BBTPU_PREFILL_CHUNK; 0 disables (monolithic prefill)."""
+        if self.prefill_chunk is not None:
+            return int(self.prefill_chunk)
+        return int(env.get("BBTPU_PREFILL_CHUNK"))
+
+    def _chunk_spans(
+        self, hidden, commit, commit_lens
+    ) -> list[tuple[int, int]] | None:
+        """[start, end) chunk spans for this step, or None when the step
+        stays one monolithic compute task. Only plain committing prefills
+        chunk: speculative (commit=False) and ragged-replay steps own
+        their table side effects."""
+        budget = self._chunk_budget()
+        if (
+            budget <= 0
+            or hidden.shape[1] <= 1
+            or not commit
+            or commit_lens is not None
+        ):
+            return None
+        spans = plan_prefill_chunks(
+            hidden.shape[1], budget, cap=self.executor.max_chunk_tokens
+        )
+        return spans if len(spans) > 1 else None
+
+    async def _run_chunked_prefill(
+        self, session: _Session, handle, hidden, spans, deadline
+    ):
+        """Drive one prefill as a stream of resumable chunk tasks. Each
+        chunk is its own compute-queue submission at an AGING chunk
+        priority (fresh streams yield to queued decode steps; an old
+        stream reaches decode priority, so it cannot starve), with the
+        client deadline re-checked between chunks and at each chunk's
+        queue pop.
+
+        Chunks write their KV speculatively; the LAST chunk's compute-
+        thread slot commits the whole prompt, so any abort (deadline
+        expiry, a failed chunk) rolls back and frees every partial page.
+        Returns (per-chunk device outputs, total dispatch ms); `_fetch`
+        concatenates the chunk list off the queue."""
+        stream_t0 = clock.monotonic()
+        outs: list = []
+        total_ms = 0.0
+        last = len(spans) - 1
+        self._chunking_sessions += 1
+        try:
+            for idx, (s, e) in enumerate(spans):
+                if deadline is not None and clock.monotonic() > deadline:
+                    raise DeadlineExpired(
+                        "client deadline expired between prefill chunks"
+                    )
+                if self.mixed_batch:
+                    # batchable chunk: the worker may fuse it with queued
+                    # decode steps into one ragged dispatch (and a popped
+                    # decode may likewise absorb it)
+                    out, dt_ms = await self.compute.submit_group(
+                        aged_chunk_priority(stream_t0),
+                        ("chunkm", session.layers, None, str(hidden.dtype),
+                         e - s),
+                        _ChunkMember(session, handle, hidden[:, s:e],
+                                     idx == last),
+                        self._compute_ragged_group,
+                        deadline=deadline,
+                        task_class="prefill",
+                    )
+                else:
+                    out, dt_ms = await self.compute.submit(
+                        aged_chunk_priority(stream_t0),
+                        self._compute_prefill_chunk, session, handle,
+                        hidden[:, s:e], idx == last,
+                        deadline=deadline,
+                        task_class="prefill",
+                    )
+                outs.append(out)
+                total_ms += dt_ms
+                self.prefill_chunks += 1
+                self.prefill_chunk_tokens += int(hidden.shape[0]) * (e - s)
+        except BaseException:
+            # free the partial prefill's speculative pages now: a session
+            # holding pages for a prompt nobody will finish is a leak until
+            # close, and a deadline abort exists to release capacity
+            await self._abort_chunked_prefill(handle)
+            raise
+        finally:
+            self._chunking_sessions -= 1
+        return outs, total_ms
+
+    async def _abort_chunked_prefill(self, handle) -> None:
+        """Roll the handle back to its committed state, freeing the aborted
+        prefill's speculative pages, on the compute thread (the only thread
+        that mutates the paged table)."""
+        try:
+            await self.compute.submit(
+                PRIORITY_INFERENCE, self._rollback_if_valid, handle
+            )
+        except Exception:
+            logger.warning(
+                "chunked-prefill rollback failed; pages free at session "
+                "close instead", exc_info=True,
+            )
+
+    def _rollback_if_valid(self, handle) -> None:
+        if self.manager.epoch_valid(handle):
+            self.manager.rollback(handle)
+
+    def _compute_prefill_chunk(self, session: _Session, handle, hidden,
+                               last: bool):
+        """Runs on the compute thread: one chunk of a chunked prefill. Same
+        contract as _compute_step (dispatch only); every chunk writes
+        speculatively and the LAST chunk commits the whole prompt."""
+        if not self.manager.epoch_valid(handle):
+            raise SessionKVLost("session cache lost: replay")
+        session.last_step_at = clock.monotonic()
+        t0 = clock.perf_counter()
+        # recovery owner: _run_chunked_prefill's abort (a rollback)
+        out = self.executor.prefill_chunk(
+            handle, hidden, commit=False, layers=session.layers, fetch=False,
+        )
+        if last:
+            self.manager.commit(handle)
+        self.step_dispatches += 1
+        self.step_tokens += int(hidden.shape[0]) * int(hidden.shape[1])
+        return out, (clock.perf_counter() - t0) * 1000.0
+
+    # ------------------------------------------------ continuous batching
+    def _batchable(self, commit, hidden, commit_lens) -> bool:
+        """Whether this step may share a merged dispatch: plain committing
+        single-token decode only. Prefills, ragged replays and speculative
+        (commit=False) steps keep their own compute task: their table side
+        effects are per session."""
+        return (
+            self.max_batch > 1
+            and hidden.shape[1] == 1
+            and commit_lens is None
+            and commit
+        )
+
+    def _compute_step_group(self, members: list[_BatchMember]) -> list:
+        """Runs on the compute thread: a group of compatible single-token
+        decode steps as ONE merged span dispatch. Returns one outcome per
+        member: (device out rows, dispatch_ms) or an Exception instance,
+        which the queue raises only at that member's caller.
+
+        A member whose KV is gone fails alone; if the merged dispatch
+        itself fails, its speculative writes roll back and the group
+        replays row by row, so one member's fault never sinks its peers."""
+        results: list = [None] * len(members)
+        ready: list[int] = []
+        for i, m in enumerate(members):
+            if not self.manager.epoch_valid(m.handle):
+                results[i] = SessionKVLost("session cache lost: replay")
+            # (ROADMAP item 12: parked and unsettled-adoption members
+            # take the solo path here)
+            else:
+                ready.append(i)
+        if len(ready) == 1:
+            results[ready[0]] = self._solo_member_step(members[ready[0]])
+        elif ready:
+            group = [members[i] for i in ready]
+            try:
+                outs = self._dispatch_batched(group)
+            except Exception as e:
+                logger.warning(
+                    "batched decode of %d sessions failed (%r); "
+                    "replaying row-by-row", len(group), e,
+                )
+                outs = [self._solo_member_step(m) for m in group]
+            for i, out in zip(ready, outs):
+                results[i] = out
+        return results
+
+    def _solo_member_step(self, m: _BatchMember):
+        self.batch_solo_steps += 1
+        ledger.recovery("server.rollback_solo_replay")
+        try:
+            return self._compute_step(m.session, m.handle, m.hidden, True,
+                                      None)
+        except Exception as e:
+            return e
+
+    def _dispatch_batched(self, group: list[_BatchMember]) -> list:
+        """One row-stacked span dispatch for >= 2 sessions' decode steps.
+        KV writes go in speculatively and commit only after the dispatch
+        succeeds, so a failure rolls the whole group's tables back to the
+        pre-step state and the row-by-row replay appends no ghost tokens."""
+        t0 = clock.perf_counter()
+        now = clock.monotonic()
+        for m in group:
+            m.session.last_step_at = now
+        handles = [m.handle for m in group]
+        try:
+            out, combined = self.executor.decode_group(
+                handles, [m.hidden for m in group],
+                layers=group[0].session.layers,
+            )
+        except Exception:
+            self.manager.rollback(self.manager.combine_handles(handles))
+            raise
+        self.manager.commit(combined)
+        dt_ms = (clock.perf_counter() - t0) * 1000.0
+        rows = sum(m.handle.batch_size for m in group)
+        self.batch_dispatches += 1
+        self.batched_steps += len(group)
+        self.step_dispatches += 1
+        self.step_tokens += rows
+        if self._chunking_sessions:
+            self.decode_steps_interleaved += len(group)
+        outs = []
+        row = 0
+        for m in group:
+            b = m.handle.batch_size
+            outs.append((out[row:row + b], dt_ms))
+            row += b
+        return outs
+
+    # ------------------------------------------------- mixed ragged dispatch
+    def _batch_group_hint(self, members: list | None = None) -> int:
+        """Upper bound on how many members a ComputeQueue gather window
+        could still collect: a session submits at most one step (or prefill
+        chunk) at a time, so once every open session is in the group the
+        window is dead time, and a solo session never waits it out. (The
+        JAX server's tree-aware bound belongs to ROADMAP item 13: with no
+        tree members it is this count.)"""
+        return len(self._sessions)
+
+    def _ragged_compat(self, members: list, cand) -> bool:
+        """The ComputeQueue group-membership predicate of the mixed ragged
+        dispatch: decode steps ("decode1") and prefill chunks ("chunkm")
+        fuse when they agree on layers, adapter and dtype; a group holds at
+        most ONE chunk and at most max_batch decode members (the chunk
+        rides the +1 group slot). Any other kind coalesces by exact key."""
+        mixable = {"decode1", "chunkm"} if self.mixed_batch else set()
+        keys = [m.key for m in members]
+        if cand.key[0] not in mixable or keys[0][0] not in mixable:
+            return cand.key == keys[0]
+        if any(k[1:4] != cand.key[1:4] for k in keys):
+            return False
+        kinds = [k[0] for k in keys]
+        if cand.key[0] == "chunkm":
+            return "chunkm" not in kinds
+        return sum(1 for k in kinds if k != "chunkm") < self.max_batch
+
+    def _compute_ragged_group(self, members: list) -> list:
+        """Runs on the compute thread: ONE group of decode steps and at most
+        one prefill chunk, as the compat predicate admitted them. Returns
+        one outcome per member, as _compute_step_group does.
+
+        Members whose KV is gone fail alone. A chunk-free group is a merged
+        decode group; a lone chunk runs solo; everything else runs as ONE
+        ragged span dispatch via executor.ragged_group, replayed per kind
+        if the fused dispatch fails."""
+        results: list = [None] * len(members)
+        decode_idx: list[int] = []
+        chunk_idx: list[int] = []
+        for i, m in enumerate(members):
+            if not isinstance(m, (_BatchMember, _ChunkMember)):
+                raise TypeError(
+                    f"ragged group member of kind {type(m).__name__}"
+                )
+            if not self.manager.epoch_valid(m.handle):
+                results[i] = SessionKVLost("session cache lost: replay")
+            # (ROADMAP item 12: parked and adopted members take their
+            # kind's solo path here)
+            elif isinstance(m, _ChunkMember):
+                chunk_idx.append(i)
+            else:
+                decode_idx.append(i)
+        if not chunk_idx:
+            outs = self._compute_step_group([members[i] for i in decode_idx])
+        elif not decode_idx:
+            outs = [self._solo_chunk_step(members[chunk_idx[0]])]
+        else:
+            group = [members[i] for i in decode_idx + chunk_idx]
+            try:
+                # member-major row order: the decodes, then the chunk LAST
+                outs = self._dispatch_ragged(group)
+            except Exception as e:
+                logger.warning(
+                    "ragged dispatch of %d decodes + %d chunks failed (%r); "
+                    "replaying solo", len(decode_idx), len(chunk_idx), e,
+                )
+                outs = [
+                    self._solo_chunk_step(m) if isinstance(m, _ChunkMember)
+                    else self._solo_member_step(m)
+                    for m in group
+                ]
+        for i, out in zip(decode_idx + chunk_idx, outs):
+            results[i] = out
+        return results
+
+    def _solo_chunk_step(self, m: _ChunkMember):
+        try:
+            return self._compute_prefill_chunk(
+                m.session, m.handle, m.hidden, m.last
+            )
+        except Exception as e:
+            return e
+
+    def _dispatch_ragged(self, group: list) -> list:
+        """ONE ragged span dispatch for decode steps and one prefill chunk
+        (group[-1]). Every member's KV goes in speculatively and commit or
+        rollback stays PER KIND:
+
+        - decode members commit after the dispatch succeeds and roll back
+          to their committed state on failure;
+        - the chunk commits only on its stream's LAST chunk and is
+          TRUNCATED to its pre-dispatch length on failure (a rollback
+          would also discard the stream's earlier, still-wanted chunks)."""
+        t0 = clock.perf_counter()
+        now = clock.monotonic()
+        for m in group:
+            m.session.last_step_at = now
+        chunk = group[-1]
+        decodes = group[:-1]
+        chunk_snap = [int(x) for x in self.manager.context_lens(chunk.handle)]
+        try:
+            out, _combined = self.executor.ragged_group(
+                [m.handle for m in group], [m.hidden for m in group],
+                layers=group[0].session.layers,
+            )
+        except Exception:
+            if self.manager.epoch_valid(chunk.handle):
+                self.manager.truncate_speculative(chunk.handle, chunk_snap)
+            for m in decodes:
+                if self.manager.epoch_valid(m.handle):
+                    self.manager.rollback(m.handle)
+            raise
+        for m in decodes:
+            self.manager.commit(m.handle)
+        if chunk.last:
+            self.manager.commit(chunk.handle)
+        dt_ms = (clock.perf_counter() - t0) * 1000.0
+        ntok = sum(
+            m.handle.batch_size * int(m.hidden.shape[1]) for m in group
+        )
+        self.ragged_group_dispatches += 1
+        self.ragged_cross_kind_dispatches += 1
+        self.mixed_dispatches += 1
+        self.mixed_tokens += ntok
+        self.step_dispatches += 1
+        self.step_tokens += ntok
+        # the decodes ran inside a mid-stream prefill's dispatch
+        self.decode_steps_interleaved += len(decodes)
+        # slice the member-major token-packed [R, D] result back out:
+        # decode members get [b, 1, D], the chunk [b, t, D]
+        outs = []
+        off = 0
+        for m in group:
+            b = m.handle.batch_size
+            t = int(m.hidden.shape[1])
+            outs.append((out[off:off + b * t].reshape(b, t, -1), dt_ms))
+            off += b * t
+        return outs
 
     def _fetch(self, out_dev) -> torch.Tensor:
         """The step's output on the host, in the wire dtype."""
