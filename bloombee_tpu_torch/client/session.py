@@ -9,17 +9,24 @@ replacement servers to rebuild their KV caches (`_update_sequence`,
 only to span 0 and each hop forwards activations directly (reference
 ClientConfig.push_only_downstream_decode, config.py:19-42).
 
+Speculative steps (reference speculative_model.py, spe_dec_tree.py): a
+`step` with `tree_mask` [B, T, T] and `depths` [B, T] verifies linearized
+draft trees speculatively; `accept` (per-row surviving node indices of the
+previous tree) rides the next step and the servers compact those rows
+before computing; `rows=(lo, hi)` ships only a live-row window of the
+batch; `prune` asks span 0 to prune the tree with its MidLMHead and
+`accept_per_span` gives each span its own accepts (`_step_pruned`, relay
+mode only); `send_accept` applies a final accept with no compute.
+
 Hidden states are torch tensors on the client's device. A step's output
 is gathered in f32 there, as the JAX client gathers it; replies arrive
 from the codec as CPU tensors and move to the device once per chunk.
 
 Not ported yet, and refused with NotImplementedError naming the ROADMAP
-item: the speculative arguments of `step` (`tree_mask`, `depths`,
-`accept`, `prune`, `accept_per_span`, `rows`) and `send_accept` (item
-13), `decode_n` (item 11) and `rewind_decoded_tail` (items 11, 13). The
-prefix probe, standby replication and reconnect-resume (item 12) and the
-cross-replica audits (item 19) are reached only through `ClientConfig`
-fields, which refuse them (client/config.py).
+item: `decode_n` and `rewind_decoded_tail` (item 11). The prefix probe,
+standby replication and reconnect-resume (item 12) and the cross-replica
+audits (item 19) are reached only through `ClientConfig` fields, which
+refuse them (client/config.py).
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ import random
 import time
 import uuid
 
+import numpy as np
 import torch
 
 from bloombee_tpu_torch.client.integrity import (
@@ -41,6 +49,7 @@ from bloombee_tpu_torch.client.sequence_manager import (
     MissingBlocksError,
     RemoteSequenceManager,
 )
+from bloombee_tpu_torch.spec.tree import pruned_step_arrays
 from bloombee_tpu_torch.swarm.data import RemoteSpanInfo
 from bloombee_tpu_torch.utils import env, ledger
 from bloombee_tpu_torch.wire.rpc import (
@@ -68,19 +77,11 @@ env.declare(
 # a process's sessions share one fair-share bucket server-side
 _PROCESS_CLIENT_ID = f"cli-{uuid.uuid4().hex[:8]}"
 
-# step arguments and methods of the JAX session this port lacks ->
-# (what they ask for, ROADMAP Queue 1 item)
+# methods of the JAX session this port lacks -> (what they ask for,
+# ROADMAP Queue 1 item)
 _UNPORTED = {
-    "tree_mask": ("speculative tree steps", "13"),
-    "depths": ("speculative tree steps", "13"),
-    "accept": ("speculative accepts", "13"),
-    "prune": ("mid-chain tree pruning", "13"),
-    "accept_per_span": ("mid-chain tree pruning", "13"),
-    "rows": ("live-row windows of tree steps", "13"),
-    "send_accept": ("speculative accepts", "13"),
     "decode_n": ("server-side multi-step decode", "11"),
-    "rewind_decoded_tail": ("server-side decode with speculative rewind",
-                            "11 and 13"),
+    "rewind_decoded_tail": ("server-side decode with an EOS rewind", "11"),
 }
 
 
@@ -98,6 +99,21 @@ def _raise_if_session_lost(resp_meta: dict) -> None:
     recovers and replays WITHOUT banning the peer."""
     if resp_meta.get("session_lost"):
         raise RpcError(resp_meta.get("reason", "session KV lost"))
+
+
+def _mask_u8(tree_mask) -> torch.Tensor:
+    """A [B, T, T] tree mask (bool, numpy or torch) as the u8 host tensor
+    the wire carries."""
+    if isinstance(tree_mask, torch.Tensor):
+        return tree_mask.detach().to(device="cpu", dtype=torch.uint8)
+    return torch.from_numpy(
+        np.ascontiguousarray(np.asarray(tree_mask), dtype=np.uint8)
+    )
+
+
+def _accept_meta(accept) -> list:
+    """Per-row accepted node indices as the wire's lists of ints."""
+    return [np.asarray(a, dtype=np.int64).tolist() for a in accept]
 
 
 def _sanitize_retry_ms(retry_ms) -> int | None:
@@ -270,26 +286,29 @@ class InferenceSession:
         accept=None,
         ids=None,  # [B, T] (tensor or numpy): enables token-id replay
         commit_lens: list | None = None,
-        prune=None,
-        accept_per_span=None,
-        rows=None,
-    ) -> torch.Tensor:
+        prune: dict | None = None,  # mid-chain tree pruning (tree steps)
+        accept_per_span: list | None = None,  # pruned chains: per span
+        rows: tuple | None = None,  # (lo, hi): hidden covers only this
+        # contiguous row window of the session's cache; accept stays
+        # full-width (servers apply it before slicing the handle)
+    ):
         """Push hidden through the whole chain; returns the last span's
-        output, f32, on hidden's device."""
-        for name, value in (
-            ("tree_mask", tree_mask), ("depths", depths), ("accept", accept),
-            ("prune", prune), ("accept_per_span", accept_per_span),
-            ("rows", rows),
-        ):
-            if value is not None:
-                raise _unported(name)
+        output, f32, on hidden's device (or (output, keep) for pruned tree
+        steps, keep [B, K] numpy or None)."""
         hidden = torch.as_tensor(hidden)
         attempt = 0
         overload_waits = 0
         while True:
             try:
-                out = await self._step_once(hidden, commit, commit_lens)
-                if commit:
+                if prune is not None or accept_per_span is not None:
+                    return await self._step_pruned(
+                        hidden, tree_mask, depths, prune, accept_per_span
+                    )
+                out = await self._step_once(
+                    hidden, commit, commit_lens, tree_mask, depths, accept,
+                    rows,
+                )
+                if commit and tree_mask is None:
                     if ids is not None and self.embed_fn is not None:
                         for i, row in enumerate(torch.as_tensor(ids).tolist()):
                             self._id_rows[i].extend(int(t) for t in row)
@@ -313,6 +332,11 @@ class InferenceSession:
                 await asyncio.sleep(wait_s)
                 try:
                     await self._recover()
+                    # the replay committed every accepted token on the
+                    # fresh chain, whose speculative window is empty: a
+                    # carried accept is stale
+                    accept = None
+                    accept_per_span = None
                 except (
                     RpcError, OSError, asyncio.TimeoutError,
                     MissingBlocksError,
@@ -327,6 +351,8 @@ class InferenceSession:
                 )
                 try:
                     await self._recover()
+                    accept = None
+                    accept_per_span = None
                 except (
                     RpcError, OSError, asyncio.TimeoutError,
                     MissingBlocksError,
@@ -385,7 +411,92 @@ class InferenceSession:
         )
         raise IntegrityError(f"span output rejected ({reason})")
 
-    async def _step_once(self, hidden, commit, commit_lens=None):
+    async def _step_pruned(
+        self, hidden, tree_mask, depths, prune, accept_per_span
+    ):
+        """Tree step through the chain with mid-chain pruning: span 0 runs
+        the full tree and returns only surviving rows + keep indices; the
+        client forwards the pruned tree (restricted mask/depths)
+        downstream (relay mode only). Accepts may differ per span:
+        downstream spans hold KV in kept-row order (reference
+        backend.py:763-775 + block_functions.py restore_hidden_states,
+        inverted client-side).
+
+        Returns (out [B, K, D] f32 on hidden's device, keep [B, K] numpy
+        or None if the pruning span has no pruner head)."""
+        if not self._spans:
+            raise RpcError("session chain is closed (recovery pending)")
+        if self.use_push and len(self._spans) > 1:
+            raise ValueError(
+                "pruned tree steps need relay mode (use_push=False)"
+            )
+        if tree_mask is None or depths is None:
+            raise ValueError("a pruned step is a tree step: pass tree_mask "
+                             "and depths")
+        step_id = self._step_counter
+        self._step_counter += 1
+        wire_dt = dtype_for_name(self._spans[0].span.server_info.wire_dtype)
+        chunk = hidden.to(wire_dt)
+        mask_u8 = _mask_u8(tree_mask)
+        depths_list = np.asarray(depths).tolist()
+        keep = None
+
+        t_start = time.perf_counter()
+        compute_ms = []
+        for i, span_sess in enumerate(self._spans):
+            meta = {
+                "step": step_id,
+                "commit": False,
+                "tree": True,
+                "depths": depths_list,
+                "reply": "tensor",
+                "deadline_s": self.step_timeout,
+            }
+            if accept_per_span is not None and accept_per_span[i] is not None:
+                meta["accept"] = _accept_meta(accept_per_span[i])
+            if i == 0 and prune is not None:
+                meta["prune"] = prune
+            try:
+                await span_sess.stream.send(meta, [chunk, mask_u8])
+                item = await asyncio.wait_for(
+                    span_sess.stream.recv(), self.step_timeout
+                )
+            except OverloadedError as e:
+                self._note_shed_exc(e, span_sess.span.peer_id)
+                raise
+            except (RpcError, OSError, asyncio.TimeoutError):
+                self.manager.ban_peer(span_sess.span.peer_id)
+                raise
+            if item is None:
+                self.manager.ban_peer(span_sess.span.peer_id)
+                raise RpcError(f"span {i} closed mid-session")
+            resp_meta, resp_tensors = item
+            _raise_if_session_lost(resp_meta)
+            self._raise_if_shed(resp_meta, span_sess.span.peer_id)
+            compute_ms.append(resp_meta.get("t_compute_ms"))
+            chunk = resp_tensors[0]
+            if self._gate is not None:
+                self._check_span_output(span_sess, resp_meta, chunk)
+            if i == 0 and resp_meta.get("keep") is not None:
+                keep = np.asarray(resp_meta["keep"], dtype=np.int32)
+                mask_k, depths_k = pruned_step_arrays(
+                    mask_u8.numpy().astype(bool), np.asarray(depths), keep
+                )
+                mask_u8 = torch.from_numpy(mask_k.astype(np.uint8))
+                depths_list = depths_k.tolist()
+        self._note_spans_ok()
+        self.timings.append(
+            {
+                "step": step_id,
+                "tokens": hidden.shape[1],
+                "span_compute_ms": compute_ms,
+                "total_ms": (time.perf_counter() - t_start) * 1000.0,
+            }
+        )
+        return chunk.to(device=hidden.device, dtype=torch.float32), keep
+
+    async def _step_once(self, hidden, commit, commit_lens=None,
+                         tree_mask=None, depths=None, accept=None, rows=None):
         if not self._spans:
             # a failed recovery left no open chain; surface as a retryable
             # wire error so the caller's retry loop attempts recovery again
@@ -395,19 +506,25 @@ class InferenceSession:
         meta_base = {
             "step": step_id,
             "commit": commit,
-            "tree": False,
+            "tree": tree_mask is not None,
             # remaining-time budget: the server aborts work this client
             # has already given up on
             "deadline_s": self.step_timeout,
         }
+        if depths is not None:
+            meta_base["depths"] = np.asarray(depths).tolist()
+        if accept is not None:
+            meta_base["accept"] = _accept_meta(accept)
         if commit_lens is not None:
             meta_base["commit_lens"] = [int(x) for x in commit_lens]
         # ship hidden in the first span's advertised wire dtype (bf16 for
         # bf16-compute servers: half the bytes on the latency-critical hop)
         wire_dt = dtype_for_name(self._spans[0].span.server_info.wire_dtype)
         hidden_w = hidden.to(wire_dt)
+        extra = [_mask_u8(tree_mask)] if tree_mask is not None else []
 
-        # within-stage micro-batching: plain committed steps only
+        # within-stage micro-batching: plain committed steps only (tree and
+        # accept steps keep whole-batch semantics)
         b = hidden.shape[0]
         mb = self.microbatch
         if mb == "auto":
@@ -419,11 +536,32 @@ class InferenceSession:
                 if len(self._spans) > 1 and b > 1
                 else 1
             )
-        if commit_lens is not None or mb > b:
+        if (
+            tree_mask is not None
+            or accept is not None
+            or commit_lens is not None
+            or mb > b
+        ):
             mb = 1
-        bounds = [
-            (round(k * b / mb), round((k + 1) * b / mb)) for k in range(mb)
-        ]
+        # live-row window (tree steps): hidden carries only rows [lo, hi)
+        # of the cache and the servers slice their handle to it. Row
+        # labels on the wire stay ABSOLUTE; row_base maps them back onto
+        # this window-sized hidden/out.
+        row_base = 0
+        if rows is not None:
+            lo_r, hi_r = int(rows[0]), int(rows[1])
+            if hi_r - lo_r != b:
+                raise ValueError(
+                    f"rows window {rows} does not match hidden batch {b}"
+                )
+            mb = 1
+            row_base = lo_r
+            bounds = [(lo_r, hi_r)]
+        else:
+            bounds = [
+                (round(k * b / mb), round((k + 1) * b / mb))
+                for k in range(mb)
+            ]
 
         route = []
         if self.use_push and len(self._spans) > 1:
@@ -445,7 +583,9 @@ class InferenceSession:
             }
             if route:
                 meta["route"] = route
-            await self._spans[0].stream.send(meta, [hidden_w[lo:hi]])
+            await self._spans[0].stream.send(
+                meta, [hidden_w[lo - row_base:hi - row_base]] + extra
+            )
 
         t_start = time.perf_counter()
         out = torch.zeros(hidden.shape, dtype=torch.float32,
@@ -475,13 +615,15 @@ class InferenceSession:
                     span_ms += resp_meta["t_compute_ms"]
                 if resp_meta.get("ack"):
                     continue
-                lo, hi = resp_meta.get("rows") or (0, b)
+                lo, hi = resp_meta.get("rows") or (row_base, row_base + b)
                 chunk = resp_tensors[0]
                 if self._gate is not None:
                     # inline integrity BEFORE this chunk enters `out` or
                     # gets forwarded to the next span
                     self._check_span_output(span_sess, resp_meta, chunk)
-                out[lo:hi] = chunk.to(device=out.device, dtype=torch.float32)
+                out[lo - row_base:hi - row_base] = chunk.to(
+                    device=out.device, dtype=torch.float32
+                )
                 got_tensor = True
                 if not self.use_push and i + 1 < len(self._spans):
                     # relay mode: forward each chunk as it lands so the next
@@ -493,7 +635,9 @@ class InferenceSession:
                         "mb_of": mb,
                         "rows": [lo, hi],
                     }
-                    await self._spans[i + 1].stream.send(fwd_meta, [chunk])
+                    await self._spans[i + 1].stream.send(
+                        fwd_meta, [chunk] + extra
+                    )
             compute_ms.append(span_ms)
         if not got_tensor:
             raise RpcError("no span returned a tensor")
@@ -553,8 +697,30 @@ class InferenceSession:
     async def decode_n(self, *args, **kwargs):
         raise _unported("decode_n")
 
-    async def send_accept(self, *args, **kwargs):
-        raise _unported("send_accept")
+    async def send_accept(
+        self, accept: list, per_span: list | None = None
+    ) -> None:
+        """Apply a speculative accept on every span without running compute
+        (the final accept of a generation, or an accept with no next tree).
+        `per_span` overrides the accept for each span (pruned chains hold
+        KV in kept-row order downstream)."""
+        step_id = self._step_counter
+        self._step_counter += 1
+        for i, span_sess in enumerate(self._spans):
+            acc = accept if per_span is None else per_span[i]
+            meta = {
+                "step": step_id,
+                "accept": _accept_meta(acc),
+                "accept_only": True,
+                "reply": "ack",
+            }
+            await span_sess.stream.send(meta, [])
+        for i, span_sess in enumerate(self._spans):
+            item = await asyncio.wait_for(
+                span_sess.stream.recv(), self.step_timeout
+            )
+            if item is None:
+                raise RpcError(f"span {i} closed during accept")
 
     def rewind_decoded_tail(self, *args, **kwargs):
         raise _unported("rewind_decoded_tail")

@@ -12,6 +12,8 @@ out-of-bounds slots (`mode="drop"`), and the executor points padding rows at
 slot == capacity relying on that; `index_copy_` would not drop them, so the
 write plan keeps only in-bounds rows before scattering.
 
+`arena_reorder` compacts a speculative accept's surviving rows in place.
+
 `quant="int4"` stores the slabs group-quantized (`kv.quant.QuantSlab`):
 writes quantize the kept rows, gathers dequantize to f32.
 """
@@ -95,6 +97,24 @@ def arena_write(
     k_layer.index_copy_(0, dst, k_new.index_select(0, rows).to(k_layer.dtype))
     v_layer.index_copy_(0, dst, v_new.index_select(0, rows).to(v_layer.dtype))
     return k_layer, v_layer
+
+
+def arena_reorder(k_slab, v_slab, src, dst):
+    """Compact surviving speculative KV rows onto the committed prefix, in
+    place, in every layer of both [L, S, ...] slabs: slot `dst[i]` takes
+    what slot `src[i]` held. Every read happens before any write (JAX's
+    gather-before-scatter), so a source that is another row's destination
+    still yields its old contents; a QuantSlab moves every leaf on the
+    same slots. `src` and `dst` are in-bounds int64 index tensors on the
+    slabs' device: JAX pads to a bucket and drops out-of-bounds scatters,
+    the caller here drops padding on the host instead. Returns the
+    (updated) slabs."""
+    for slab in (k_slab, v_slab):
+        leaves = slab if isinstance(slab, QuantSlab) else (slab,)
+        moved = [leaf.index_select(1, src) for leaf in leaves]
+        for leaf, rows in zip(leaves, moved):
+            leaf.index_copy_(1, dst, rows)
+    return k_slab, v_slab
 
 
 def gather_pages(

@@ -3,7 +3,8 @@ core of bloombee_tpu/kv/cache_manager.py).
 
 Kept: token-budget admission with timeout (`allocate`), handle -> per-
 sequence cache state freed on context exit, speculative write / commit /
-rollback / truncate over the PagedKVTable, ragged per-sequence writes,
+rollback / truncate over the PagedKVTable, the speculative accept
+(`accept_speculative`), ragged per-sequence writes,
 the combined handle of a batched step, and the int4 arena
 (`quant="int4"`, an explicit argument here; the server's default comes
 from BBTPU_KV_QUANT).
@@ -210,6 +211,40 @@ class CacheManager:
     def rollback(self, handle: CacheHandle):
         for sid in handle.seq_ids:
             self.table.rollback(sid)
+
+    @_locked
+    def accept_speculative(
+        self, handle: CacheHandle, accepted_indices: list
+    ) -> None:
+        """Compact surviving speculative KV rows onto the committed prefix
+        and commit them (the on-device replacement for the reference's async
+        reorder thread, memory_cache_manager.py:2011-2160): one gather, then
+        one scatter, over every layer of both slabs.
+
+        `accepted_indices[i]` lists row i's surviving tree-relative indices
+        in path order (depth 0, 1, ...). (The JAX manager first unparks the
+        handle; the port has no parking yet, ROADMAP item 12.)"""
+        src_all, dst_all = [], []
+        for sid, idx in zip(handle.seq_ids, accepted_indices):
+            st = self.table.seq(sid)
+            idx = np.asarray(idx, dtype=np.int64)
+            spec_slots = self.table.range_slots(sid, st.l_acc, st.l_seq)
+            src_all.append(spec_slots[idx])
+            dst_all.append(spec_slots[: len(idx)])
+            self.table.accept(sid, len(idx))
+        src = np.concatenate(src_all) if src_all else np.zeros(0, np.int32)
+        dst = np.concatenate(dst_all) if dst_all else np.zeros(0, np.int32)
+        keep = src != dst  # in-place rows need no move
+        src, dst = src[keep], dst[keep]
+        if len(src) == 0:
+            return
+        # the moved rows only: no bucket padding, so no out-of-bounds slot
+        # ever reaches the device
+        arena_ops.arena_reorder(
+            self.arena["k"], self.arena["v"],
+            torch.from_numpy(src.astype(np.int64)).to(self.device),
+            torch.from_numpy(dst.astype(np.int64)).to(self.device),
+        )
 
     @_locked
     def epoch_valid(self, handle: CacheHandle) -> bool:

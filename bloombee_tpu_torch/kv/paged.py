@@ -4,7 +4,8 @@ primitives, which this slice does not serve).
 
 Page-granular allocation from a LIFO free list, per-sequence page lists,
 committed length `l_acc` vs written length `l_seq`, commit/rollback freeing
-orphaned pages. The table never touches tensors: `assign_write_slots`
+orphaned pages, and the speculative accept (`accept`, with `range_slots`
+naming the slots the caller compacts). The table never touches tensors: `assign_write_slots`
 returns flat arena slot ids (page * page_size + offset) that the device step
 scatters into. Slot assignment matches the JAX package's table call for call.
 """
@@ -125,6 +126,32 @@ class PagedKVTable:
         state.l_acc = length
         state.l_seq = length
         self._trim(state)
+
+    def accept(self, seq_id: int, num_accepted: int) -> None:
+        """Keep the first `num_accepted` speculative tokens (after the caller
+        compacted the arena rows onto them) and discard the rest."""
+        state = self._seqs[seq_id]
+        if not 0 <= num_accepted <= state.l_seq - state.l_acc:
+            raise ValueError(
+                f"accept {num_accepted} outside speculative window "
+                f"[0, {state.l_seq - state.l_acc}]"
+            )
+        state.l_acc += num_accepted
+        state.l_seq = state.l_acc
+        self._trim(state)
+
+    def range_slots(self, seq_id: int, start: int, end: int) -> np.ndarray:
+        """Flat slot ids for positions [start, end) (must be materialized)."""
+        state = self._seqs[seq_id]
+        if end > len(state.pages) * self.page_size:
+            raise ValueError("range beyond allocated pages")
+        positions = np.arange(start, end)
+        pages = np.asarray(state.pages, dtype=np.int64)[
+            positions // self.page_size
+        ]
+        return (pages * self.page_size + positions % self.page_size).astype(
+            np.int32
+        )
 
     def rollback(self, seq_id: int) -> None:
         """Discard speculative tokens; free orphaned pages."""

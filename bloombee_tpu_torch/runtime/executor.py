@@ -36,6 +36,7 @@ from bloombee_tpu_torch.kv.cache_manager import CacheHandle, CacheManager
 from bloombee_tpu_torch.models.spec import ModelSpec
 from bloombee_tpu_torch.ops.cuda import flash_attention as cuda_flash
 from bloombee_tpu_torch.ops.cuda import paged_attention as cuda_paged
+from bloombee_tpu_torch.runtime.layer_body import unsupported
 from bloombee_tpu_torch.runtime.step import span_step, span_step_ragged
 from bloombee_tpu_torch.utils import env
 from bloombee_tpu_torch.utils.device import resolve_device
@@ -81,24 +82,6 @@ def plan_prefill_chunks(
     if t <= b:
         return [(0, t)]
     return [(s, min(s + b, t)) for s in range(0, t, b)]
-
-
-def unsupported(spec: ModelSpec) -> str | None:
-    """Why this slice's layer body cannot serve `spec`; None when it can
-    (Llama-structured blocks only)."""
-    if spec.heterogeneous:
-        return "heterogeneous head_dim layers"
-    if spec.norm_type != "rms" or spec.mlp_type != "silu":
-        return f"{spec.norm_type} norm / {spec.mlp_type} MLP"
-    if spec.num_experts or spec.qk_norm or spec.k_eq_v_full:
-        return "MoE / qk-norm / shared K=V projections"
-    if spec.alibi or spec.attn_logit_softcap:
-        return "ALiBi / attention logit soft-cap"
-    if spec.parallel_attn or spec.sandwich_norms:
-        return "parallel or sandwich residual"
-    if spec.rope_local_theta and spec.rope_local_theta != spec.rope_theta:
-        return "per-layer rope theta"
-    return None
 
 
 class SpanExecutor:
@@ -264,6 +247,11 @@ class SpanExecutor:
         if has_tree and any(w > 0 for w in self.windows):
             return "sliding-window layers"
         return None
+
+    def tree_group_unsupported(self) -> str | None:
+        """Why tree-verify rows cannot join a ragged dispatch: the server's
+        `spec_batch` gate, a delegation onto `ragged_unsupported`."""
+        return self.ragged_unsupported(has_tree=True)
 
     def mixed_unsupported(self) -> str | None:
         """Why causal (decode + chunk) ragged dispatch is unavailable: the

@@ -16,8 +16,13 @@ package, on flags the executor sets per step:
 sessions packed as [1, R, D]): the ragged kernel when `use_kernel` is set,
 else the dense `attend_ragged` over every member's gathered pages.
 
+`dense_block_forward` is the Llama block over caller-supplied attention
+and no arena (`models.llama.block.block_forward`; the speculative
+drafter's path).
+
 LoRA, top-k sparse attention, ALiBi and logit soft-capping are left out of
-this slice; the executor refuses specs that need them.
+this slice; the executor and the drafter refuse specs that need them
+(`unsupported`, `dense_unsupported`).
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import torch
 
 from bloombee_tpu_torch.kv.arena import arena_write, gather_pages
 from bloombee_tpu_torch.kv.quant import QuantSlab
+from bloombee_tpu_torch.models.llama.block import block_forward
 from bloombee_tpu_torch.models.spec import ModelSpec
 from bloombee_tpu_torch.ops import apply_rotary, rms_norm, silu_mlp
 from bloombee_tpu_torch.ops.attention import NEG_INF, repeat_kv
@@ -83,6 +89,67 @@ def attend_paged(
     logits = logits.masked_fill(~mask[:, None], NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bhts,bshd->bthd", probs, v_r)
+
+
+def unsupported(spec: ModelSpec) -> str | None:
+    """Why this slice's layer body cannot serve `spec`; None when it can
+    (Llama-structured blocks only)."""
+    if spec.heterogeneous:
+        return "heterogeneous head_dim layers"
+    if spec.norm_type != "rms" or spec.mlp_type != "silu":
+        return f"{spec.norm_type} norm / {spec.mlp_type} MLP"
+    if spec.num_experts or spec.qk_norm or spec.k_eq_v_full:
+        return "MoE / qk-norm / shared K=V projections"
+    if spec.alibi or spec.attn_logit_softcap:
+        return "ALiBi / attention logit soft-cap"
+    if spec.parallel_attn or spec.sandwich_norms:
+        return "parallel or sandwich residual"
+    if spec.rope_local_theta and spec.rope_local_theta != spec.rope_theta:
+        return "per-layer rope theta"
+    return None
+
+
+def dense_unsupported(spec: ModelSpec) -> str | None:
+    """Why a family cannot run the cache-returning DENSE block forward (the
+    drafter's path); None when it can. JAX's attend-injection limits come
+    first (the caller supplies attention, so position bias, sliding
+    windows and logit soft-caps would silently drop), then what this
+    layer body lacks (ROADMAP Queue 1 item 15: Llama-structured blocks
+    only)."""
+    if spec.alibi:
+        return "ALiBi bias lives inside attention"
+    if spec.layer_types and "sliding" in spec.layer_types:
+        return "sliding-window masks live inside attention"
+    if spec.attn_logit_softcap:
+        return "attention logit soft-cap lives inside attention"
+    if spec.heterogeneous:
+        return "heterogeneous head_dim layers"
+    return unsupported(spec)
+
+
+def dense_block_forward(
+    params: dict,
+    spec: ModelSpec,
+    hidden: torch.Tensor,  # [B, T, D]
+    cos: torch.Tensor,  # [B, T, hd]
+    sin: torch.Tensor,
+    attend,  # (q, k, v) -> (attn_out [B, T, H, hd], aux)
+):
+    """Dense block forward with caller-supplied attention: the client-side
+    counterpart of `layer_body` for code that manages its own KV (the
+    speculative drafter). Returns (hidden, (k, v)), k and v [B, T, Hkv, hd]
+    after rotary."""
+    reason = dense_unsupported(spec)
+    if reason is not None:
+        raise NotImplementedError(
+            f"dense block forward doesn't cover family {spec.family!r}: "
+            f"{reason}"
+        )
+
+    def attend_kv(q, k, v):
+        return attend(q, k, v)[0], (k, v)
+
+    return block_forward(params, spec, hidden, cos, sin, attend_kv)
 
 
 def layer_body(

@@ -21,9 +21,21 @@ and JAX servers work with it:
     a prefill chunk and queued decode steps fuse into one ragged dispatch
     (`executor.ragged_group`); decodes commit or roll back, the chunk
     commits on its last chunk and is truncated on failure;
-  - every other step (prefills, speculative or ragged-replay steps) is
-    its own dispatch (`executor.prefill` for T>1, `executor.decode` for
-    T=1).
+  - batched tree verification (`spec_batch`, else `BBTPU_SPEC_BATCH`;
+    off by default): concurrent sessions' tree-verify steps pad and stack
+    into one ragged dispatch, rolled back per member and replayed solo
+    if it fails;
+  - every other step (prefills, solo tree verifies, ragged replays) is
+    its own dispatch (`executor.prefill` for a causal T>1 step,
+    `executor.decode` for T=1 and tree steps).
+- speculative decoding: a step's `accept` compacts the previous round's
+  surviving tree rows onto the committed prefix before the step runs
+  (`CacheManager.accept_speculative`), an `accept_only` step does only
+  that, a `tree` step verifies a linearized draft tree (a `[B, T, T]` u8
+  mask tensor and `depths`) speculatively, and a `prune` step scores the
+  span's output with the MidLMHead (`spec/pruner.py`, the "simple"
+  method, head from `model_dir` or BBTPU_PRUNER_CKPT) and replies only
+  the surviving rows with their `keep` indices.
 - `rpc_push`: a step pushed by an upstream server (buffered briefly when it
   races ahead of its session's open). A step whose meta names a `route`
   pushes its output on to the next hop and acks its own stream.
@@ -34,11 +46,12 @@ and JAX servers work with it:
 
 What this server does not serve yet is refused loudly, never ignored: a step
 whose meta asks for chained decode_n (`chain`, `decode_n`), KV replication
-or the prefix cache (`kv_repl`, `prefix_probe`) or speculative decoding
-(`accept`, `accept_only`, `tree`, `prune`) fails its session with an error
-frame naming the key; so does an open asking for a LoRA adapter or a
-session resume. The server advertises those features as off, and batches
-no tree-verify rows (there is no `spec_batch`).
+or the prefix cache (`kv_repl`, `prefix_probe`) fails its session with an
+error frame naming the key; so does an open asking for a LoRA adapter or a
+session resume, and the server refuses to start with the neural pruner or
+pruner training (`BBTPU_PRUNER_METHOD=neural`, `BBTPU_PRUNER_TRAIN`: both
+learn by gradient, ROADMAP item 17). The server advertises those features
+as off.
 
 Two servers in one process on one card share the device's default stream:
 each launches from its own compute thread, the split kernels' counters are
@@ -51,7 +64,11 @@ from __future__ import annotations
 import asyncio
 import dataclasses
 import logging
+import os
 import uuid
+from collections import OrderedDict
+
+import numpy as np
 
 import torch
 
@@ -103,18 +120,40 @@ env.declare(
     "and per-chunk prefill tasks",
 )
 
+env.declare(
+    "BBTPU_SPEC_BATCH", bool, False,
+    "batched tree-speculative verification: let concurrent sessions' "
+    "tree-verify steps that share (layers, dtype) pad/stack into ONE "
+    "ragged span dispatch (executor.ragged_group; with mixed batch also "
+    "on, tree rows fuse with decode rows and a prefill chunk) instead of "
+    "a solo dispatch per speculating session; per-session speculative KV "
+    "still commits/rolls back row by row. Off = every tree-verify step "
+    "dispatches solo",
+)
+env.declare(
+    "BBTPU_PRUNER_METHOD", str, "simple",
+    "draft-tree pruning strategy: 'simple' (probability threshold, "
+    "reference simple_probability_pruner); 'neural' is refused (it learns "
+    "by gradient, ROADMAP item 17)",
+)
+env.declare(
+    "BBTPU_PRUNER_TRAIN", bool, False,
+    "train the MidLMHead online from accepted paths: refused by the port "
+    "(ROADMAP item 17)",
+)
+env.declare(
+    "BBTPU_PRUNER_CKPT", str, "",
+    "pruner-head checkpoint (.npz, as the JAX server saves it): loaded "
+    "when present, else the head is the checkpoint's own norm + lm_head",
+)
+
 # step-meta keys this server refuses, with what they ask for; a key asks
-# only when its value is truthy (a JAX client sends "tree": false on every
-# plain step)
+# only when its value is truthy
 REFUSED_STEP_KEYS = {
     "chain": "chained decode_n",
     "decode_n": "server-side decode_n",
     "kv_repl": "session-KV replication",
     "prefix_probe": "the shared-prefix cache",
-    "accept": "speculative decoding (accept)",
-    "accept_only": "speculative decoding (accept)",
-    "tree": "speculative decoding (tree verify)",
-    "prune": "speculative decoding (mid-chain pruning)",
 }
 
 
@@ -135,6 +174,17 @@ class _Session:
         self.sum_dispatch_ms = 0.0
         self.sum_fetch_ms = 0.0
         self.opened_at = 0.0
+        # measured speculation: drafted tree tokens this session verified
+        # and how many its accepts kept (rpc_info session_spec)
+        self.spec_drafted = 0
+        self.spec_accepted = 0
+        # True while the session could contribute a tree-verify row: the
+        # kind-aware group_hint bounds a tree-only gather by the sessions
+        # speculating. Optimistic start: until a plain decode step reveals
+        # the session's kind it might speculate, so the first tree gathers
+        # wait for it. (The JAX session's `last_tree` feeds the online
+        # head trainer, which the port refuses: ROADMAP item 17.)
+        self.speculating = True
 
 
 class SessionKVLost(RuntimeError):
@@ -166,6 +216,20 @@ class _ChunkMember:
     handle: object
     hidden: torch.Tensor  # [b, t, D] in the wire dtype
     last: bool
+
+
+@dataclasses.dataclass
+class _TreeMember:
+    """One session's tree-verify step inside a batched ragged dispatch
+    (`spec_batch`): the linearized draft tree's rows verify alongside
+    other sessions' trees in one executor.ragged_group call. `handle` may
+    be a row slice of the session handle (the client's live-row window)."""
+
+    session: _Session
+    handle: object
+    hidden: torch.Tensor  # [b, t, D] in the wire dtype
+    tree_mask: np.ndarray  # [b, t, t] bool ancestor-or-self visibility
+    depths: np.ndarray  # [b, t] i32 node depths (rotary offsets)
 
 
 class _PeerPool:
@@ -203,6 +267,15 @@ class _PeerPool:
         for c in self._conns.values():
             await c.close()
         self._conns.clear()
+
+
+def _spec_entry(session: _Session) -> dict:
+    """A session's drafted and accepted tree tokens (rpc_info)."""
+    return {
+        "drafted": session.spec_drafted,
+        "accepted": session.spec_accepted,
+        "accept_rate": session.spec_accepted / max(session.spec_drafted, 1),
+    }
 
 
 def _nbytes(x) -> int:
@@ -246,8 +319,22 @@ class BlockServer:
         mixed_batch: bool | None = None,  # fuse a prefill chunk and
         # compatible queued decode steps into ONE ragged span dispatch
         # (None -> BBTPU_MIXED_BATCH; off = decode-only batching)
+        spec_batch: bool | None = None,  # batched tree verification:
+        # concurrent sessions' tree-verify steps share one ragged dispatch
+        # (None -> BBTPU_SPEC_BATCH; off = solo tree dispatches)
         device="cuda",
     ):
+        if env.get("BBTPU_PRUNER_METHOD") == "neural":
+            raise NotImplementedError(
+                "BBTPU_PRUNER_METHOD=neural: the neural pruner learns by "
+                "gradient, which the port does not have yet (ROADMAP Queue "
+                "1 item 17)"
+            )
+        if env.get("BBTPU_PRUNER_TRAIN"):
+            raise NotImplementedError(
+                "BBTPU_PRUNER_TRAIN: online pruner-head training is not in "
+                "the port yet (ROADMAP Queue 1 item 17)"
+            )
         self.device = resolve_device(device)
         if params is None:
             from bloombee_tpu_torch.models.checkpoint import load_span_params
@@ -261,6 +348,7 @@ class BlockServer:
         if kv_quant is None:
             kv_quant = env.get("BBTPU_KV_QUANT")
         self.model_uid = model_uid
+        self.model_dir = model_dir
         self.start_block = start
         self.end_block = end
         self.spec = spec
@@ -300,12 +388,24 @@ class BlockServer:
                 )
                 mixed_batch = False
         self.mixed_batch = bool(mixed_batch)
-        if self.mixed_batch:
-            # one kind-aware gather predicate covers decode rows and the
-            # prefill chunk; the chunk rides one extra group slot so fusing
+        if spec_batch is None:
+            spec_batch = bool(env.get("BBTPU_SPEC_BATCH"))
+        if spec_batch:
+            reason = self.executor.tree_group_unsupported()
+            if reason is not None:
+                logger.info("batched tree verification disabled: %s", reason)
+                self.ragged_declines[reason] = (
+                    self.ragged_declines.get(reason, 0) + 1
+                )
+                spec_batch = False
+        self.spec_batch = bool(spec_batch)
+        if self.mixed_batch or self.spec_batch:
+            # one kind-aware gather predicate covers every batchable row
+            # kind (decode rows, the prefill chunk, tree-verify rows); with
+            # mixed batch the chunk rides one extra group slot so fusing
             # never costs the batcher any of its max_batch seats
             self.compute = ComputeQueue(
-                max_group=self.max_batch + 1,
+                max_group=self.max_batch + (1 if self.mixed_batch else 0),
                 compat=self._ragged_compat,
                 group_hint=self._batch_group_hint,
             )
@@ -314,6 +414,11 @@ class BlockServer:
                 max_group=self.max_batch, group_hint=self._batch_group_hint
             )
         self.peers = _PeerPool()
+        # mid-chain draft-tree pruning: the MidLMHead loads lazily from
+        # BBTPU_PRUNER_CKPT or the checkpoint's lm_head (model_dir)
+        self._pruner_manager = None
+        self._pruner_unavailable = False
+        self._pruner_lock: asyncio.Lock | None = None
         # measured RTTs to servers of the block after this span, announced
         # in ServerInfo.next_pings for routing
         self.next_pings = PingAggregator()
@@ -348,6 +453,16 @@ class BlockServer:
         # ragged dispatches, and those that mixed row kinds
         self.ragged_group_dispatches = 0
         self.ragged_cross_kind_dispatches = 0
+        # speculative decoding: tree-verify steps and the session rows they
+        # carried, drafted vs accepted tree tokens, batched tree groups and
+        # their members, and the acceptance of recently closed sessions
+        self.tree_steps = 0
+        self.tree_rows = 0
+        self.spec_tokens_drafted = 0
+        self.spec_tokens_accepted = 0
+        self.tree_group_dispatches = 0
+        self.tree_group_members = 0
+        self._closed_session_spec: OrderedDict[str, dict] = OrderedDict()
         self.rpc = RpcServer(
             unary_handlers={"rpc_info": self._rpc_info},
             stream_handlers={"rpc_inference": self._rpc_inference},
@@ -531,6 +646,34 @@ class BlockServer:
             "ragged_group_dispatches": self.ragged_group_dispatches,
             "ragged_cross_kind_dispatches": self.ragged_cross_kind_dispatches,
             "ragged_declines": dict(self.ragged_declines),
+            # speculative decoding (batched tree verification): tree steps
+            # served, the session rows they carried, drafted vs accepted
+            # tree tokens (from the accepts riding each next step) and the
+            # batched-group counters (mean_tree_batch_width > 1: sessions
+            # really fused)
+            "spec_batch": self.spec_batch,
+            "tree_steps": self.tree_steps,
+            "tree_rows": self.tree_rows,
+            "spec_tokens_drafted": self.spec_tokens_drafted,
+            "spec_tokens_accepted": self.spec_tokens_accepted,
+            "spec_accept_rate": (
+                self.spec_tokens_accepted / max(self.spec_tokens_drafted, 1)
+            ),
+            "tree_group_dispatches": self.tree_group_dispatches,
+            "tree_group_members": self.tree_group_members,
+            "mean_tree_batch_width": (
+                self.tree_group_members / self.tree_group_dispatches
+                if self.tree_group_dispatches else 0.0
+            ),
+            # per-session measured acceptance, keyed by session id; closed
+            # sessions stay visible through a bounded ring
+            "session_spec": {
+                **dict(self._closed_session_spec),
+                **{
+                    sid: _spec_entry(s)
+                    for sid, s in self._sessions.items() if s.spec_drafted
+                },
+            },
             "step_dispatches": self.step_dispatches,
             "step_tokens": self.step_tokens,
             "dispatches_per_token": (
@@ -577,6 +720,12 @@ class BlockServer:
                 await self._session_loop(session, stream)
             finally:
                 self._sessions.pop(session_id, None)
+                if session.spec_drafted:
+                    self._closed_session_spec[session_id] = _spec_entry(
+                        session
+                    )
+                    while len(self._closed_session_spec) > 64:
+                        self._closed_session_spec.popitem(last=False)
                 if session.n_steps:
                     wall = clock.monotonic() - session.opened_at
                     logger.info(
@@ -691,9 +840,47 @@ class BlockServer:
         if deadline is not None and clock.monotonic() > deadline:
             self._note_deadline_expired(meta, "on arrival")
             return
+        # speculative accept from the previous round: compact the surviving
+        # KV rows onto the committed prefix before this step's compute
+        # (full-width, on the whole session handle, before any row window)
+        accept = meta.get("accept")
+        if accept is not None:
+            await self.compute.submit(
+                PRIORITY_INFERENCE, self._accept, session,
+                [np.asarray(a, dtype=np.int64) for a in accept],
+            )
+            # node 0 of each row is the previous round's bonus token:
+            # certain, not drafted
+            kept = sum(max(0, len(a) - 1) for a in accept)
+            self.spec_tokens_accepted += kept
+            session.spec_accepted += kept
+        if meta.get("accept_only"):
+            # (the JAX server records this reply for at-most-once retries
+            # through a resumed stream; the port has no resume, ROADMAP
+            # item 12: a lost ack reroutes and replays on fresh sessions)
+            await stream.send({"step": meta.get("step"), "ack": True})
+            return
         hidden = tensors[0]  # CPU, in the sender's wire dtype
+        tree_mask = depths = None
+        # kind-aware group_hint gauge: tree steps mark the session
+        # speculating; a plain single-token decode step reveals one that
+        # is not. Prefill and chunk steps leave it as it is.
+        if meta.get("tree"):
+            session.speculating = True
+            tree_mask = tensors[1].numpy().astype(bool)
+            if meta.get("depths") is not None:
+                depths = np.asarray(meta["depths"], dtype=np.int32)
+            # node 0 of each row is the previous bonus token
+            drafted = int(hidden.shape[0]) * max(0, int(hidden.shape[1]) - 1)
+            self.tree_steps += 1
+            self.tree_rows += int(hidden.shape[0])
+            self.spec_tokens_drafted += drafted
+            session.spec_drafted += drafted
+        elif hidden.shape[1] == 1:
+            session.speculating = False
         commit = bool(meta.get("commit", True))
-        # micro-batch chunk: a row slice of the session's cache handle
+        # micro-batch chunk or live-row window: a row slice of the
+        # session's cache handle
         rows = meta.get("rows")
         handle = session.handle
         if rows is not None and tuple(rows) != (0, session.batch_size):
@@ -714,18 +901,33 @@ class BlockServer:
         # dispatch on the serialized compute queue; the fetch runs here,
         # off the queue, so concurrent sessions overlap their round trips
         try:
-            if self._batchable(commit, hidden, commit_lens):
+            if self._batchable(commit, hidden, tree_mask, commit_lens):
                 # continuous batching: compatible single-token decode steps
                 # of OTHER sessions that are queued right now (or arrive
                 # within BBTPU_BATCH_WINDOW_MS) share one merged span
                 # dispatch; this call still returns only our own rows. With
-                # mixed_batch the group may also hold a prefill chunk
+                # mixed_batch / spec_batch the group may also hold a
+                # prefill chunk or tree-verify rows
                 out_dev, t_dispatch_ms = await self.compute.submit_group(
                     PRIORITY_INFERENCE,
                     ("decode1", session.layers, None, str(hidden.dtype)),
                     _BatchMember(session, handle, hidden),
                     self._compute_ragged_group
-                    if self.mixed_batch else self._compute_step_group,
+                    if (self.mixed_batch or self.spec_batch)
+                    else self._compute_step_group,
+                    deadline=deadline,
+                    task_class="decode",
+                )
+            elif self._tree_batchable(commit, tree_mask, depths,
+                                      commit_lens, meta):
+                # batched tree verification: compatible tree-verify steps
+                # of OTHER speculating sessions pad/stack into one ragged
+                # span dispatch (tree size is not part of the key)
+                out_dev, t_dispatch_ms = await self.compute.submit_group(
+                    PRIORITY_INFERENCE,
+                    ("tree", session.layers, None, str(hidden.dtype)),
+                    _TreeMember(session, handle, hidden, tree_mask, depths),
+                    self._compute_ragged_group,
                     deadline=deadline,
                     task_class="decode",
                 )
@@ -740,13 +942,13 @@ class BlockServer:
                         session, handle, hidden, spans, deadline
                     )
                 else:
+                    is_prefill = hidden.shape[1] > 1 and tree_mask is None
                     out_dev, t_dispatch_ms = await self.compute.submit(
                         PRIORITY_INFERENCE, self._compute_step, session,
-                        handle, hidden, commit, commit_lens,
+                        handle, hidden, commit, commit_lens, tree_mask,
+                        depths,
                         deadline=deadline,
-                        task_class=(
-                            "prefill" if hidden.shape[1] > 1 else "decode"
-                        ),
+                        task_class="prefill" if is_prefill else "decode",
                     )
         except DeadlineExpired:
             self._note_deadline_expired(meta, "while queued")
@@ -764,6 +966,21 @@ class BlockServer:
         session.sum_dispatch_ms += t_dispatch_ms
         session.sum_fetch_ms += t_fetch_ms
 
+        # mid-chain tree pruning: score this span's output with the
+        # MidLMHead and reply only the surviving rows + their indices
+        # (reference backend.py:395-410 last-block prune, :763-775)
+        keep = None
+        prune = meta.get("prune")
+        if prune is not None and tree_mask is not None:
+            # first use loads the head OFF the event loop
+            await self._ensure_pruner_loaded()
+            keep = self._prune_tree(out, prune)
+            if keep is not None:
+                gather = torch.from_numpy(np.where(keep >= 0, keep, 0)).long()
+                out = torch.stack(
+                    [out[i][gather[i]] for i in range(out.shape[0])]
+                )
+
         route = meta.get("route") or []
         reply = meta.get("reply", "tensor")
         if route:
@@ -772,13 +989,17 @@ class BlockServer:
                 "session_id": nxt["session_id"],
                 "step": meta.get("step"),
                 "commit": commit,
-                "tree": False,
+                "tree": meta.get("tree", False),
                 "reply": reply,
                 "route": route[1:],
             }
             for key in ("mb", "mb_of", "rows", "commit_lens", "prefix_skip"):
                 if meta.get(key) is not None:
                     push_meta[key] = meta[key]
+            if meta.get("tree"):
+                push_meta["depths"] = meta["depths"]
+            if accept is not None:
+                push_meta["accept"] = accept
             if deadline is not None:
                 # forward the REMAINDER of the budget
                 remaining = deadline - clock.monotonic()
@@ -786,9 +1007,12 @@ class BlockServer:
                     self._note_deadline_expired(meta, "before forwarding")
                     return
                 push_meta["deadline_s"] = remaining
+            push_tensors = [out]
+            if tree_mask is not None:
+                push_tensors.append(torch.from_numpy(tree_mask.astype(np.uint8)))
             conn = await self.peers.get(nxt["host"], nxt["port"])
             async with self.peers.limiter(nxt["host"], nxt["port"]).slot():
-                await conn.push("rpc_push", push_meta, [out])
+                await conn.push("rpc_push", push_meta, push_tensors)
             # ack our own client stream so it sees this hop succeeded
             await stream.send(
                 {"step": meta.get("step"), "ack": True, **timing_meta}
@@ -802,10 +1026,20 @@ class BlockServer:
             for key in ("mb", "rows"):
                 if meta.get(key) is not None:
                     resp[key] = meta[key]
+            if keep is not None:
+                resp["keep"] = keep.tolist()
             await stream.send(resp, [out])
 
+    def _accept(self, session: _Session, accept: list) -> None:
+        """Runs on the compute thread (the only thread that mutates the
+        paged table): compact and commit the previous round's accepted
+        tree rows."""
+        if not self.manager.epoch_valid(session.handle):
+            raise SessionKVLost("session cache lost: replay")
+        self.manager.accept_speculative(session.handle, accept)
+
     def _compute_step(self, session: _Session, handle, hidden, commit,
-                      commit_lens):
+                      commit_lens, tree_mask=None, depths=None):
         """Runs on the compute thread: plan packing + asynchronous device
         dispatch only (the fetch happens off the queue). Returns the
         device output and the dispatch time in ms."""
@@ -813,19 +1047,19 @@ class BlockServer:
             raise SessionKVLost("session cache lost: replay")
         session.last_step_at = clock.monotonic()
         t0 = clock.perf_counter()
-        if hidden.shape[1] > 1:
+        if hidden.shape[1] > 1 and tree_mask is None:
             out = self.executor.prefill(
                 handle, hidden, commit=commit, layers=session.layers,
                 fetch=False,
             )
         else:
-            if self._chunking_sessions:
+            if hidden.shape[1] == 1 and self._chunking_sessions:
                 # a decode step ran while some session's chunked prefill
                 # was mid-stream: the stall this scheduler removes
                 self.decode_steps_interleaved += 1
             out = self.executor.decode(
-                handle, hidden, commit=commit, layers=session.layers,
-                fetch=False,
+                handle, hidden, commit=commit, tree_mask=tree_mask,
+                layers=session.layers, depths=depths, fetch=False,
             )
         if commit_lens is not None:
             self.manager.commit(handle, lengths=commit_lens)
@@ -961,14 +1195,15 @@ class BlockServer:
         return out, (clock.perf_counter() - t0) * 1000.0
 
     # ------------------------------------------------ continuous batching
-    def _batchable(self, commit, hidden, commit_lens) -> bool:
+    def _batchable(self, commit, hidden, tree_mask, commit_lens) -> bool:
         """Whether this step may share a merged dispatch: plain committing
-        single-token decode only. Prefills, ragged replays and speculative
-        (commit=False) steps keep their own compute task: their table side
-        effects are per session."""
+        single-token decode only. Tree-verify steps, prefills, ragged
+        replays and speculative (commit=False) steps keep their own compute
+        task: their table side effects are per session."""
         return (
             self.max_batch > 1
             and hidden.shape[1] == 1
+            and tree_mask is None
             and commit_lens is None
             and commit
         )
@@ -1051,23 +1286,78 @@ class BlockServer:
             row += b
         return outs
 
-    # ------------------------------------------------- mixed ragged dispatch
+    # ----------------------------------------- batched tree verification
+    def _tree_batchable(
+        self, commit, tree_mask, depths, commit_lens, meta
+    ) -> bool:
+        """Whether this tree-verify step may share a batched ragged dispatch
+        (`spec_batch`): a plain speculative (commit=False) tree step with
+        depth positions. Pruned relay steps keep the solo path (their keep
+        set is computed per session against the solo step's layout), as do
+        failover replays (commit_lens)."""
+        return (
+            self.spec_batch
+            and self.max_batch > 1
+            and tree_mask is not None
+            and depths is not None
+            and not commit
+            and commit_lens is None
+            and meta.get("prune") is None
+        )
+
+    def _compute_tree_group(self, members: list[_TreeMember]) -> list:
+        """A tree-only group: packs, runs and rolls back through the one
+        ragged runner."""
+        return self._compute_ragged_group(members)
+
+    def _solo_tree_step(self, m: _TreeMember):
+        self.batch_solo_steps += 1
+        try:
+            return self._compute_step(
+                m.session, m.handle, m.hidden, False, None, m.tree_mask,
+                m.depths,
+            )
+        except Exception as e:
+            return e
+
+    # ----------------------------------------- universal ragged dispatch
     def _batch_group_hint(self, members: list | None = None) -> int:
         """Upper bound on how many members a ComputeQueue gather window
-        could still collect: a session submits at most one step (or prefill
-        chunk) at a time, so once every open session is in the group the
-        window is dead time, and a solo session never waits it out. (The
-        JAX server's tree-aware bound belongs to ROADMAP item 13: with no
-        tree members it is this count.)"""
-        return len(self._sessions)
+        could still collect: a session submits at most one step (or
+        prefill chunk) at a time, so once every open session is in the
+        group the window is dead time, and a solo session never waits it
+        out.
+
+        Kind-aware when only one of the batching flags is on: a tree-only
+        gather can admit nothing but tree rows, so it is bounded by the
+        sessions speculating; a causal gather cannot admit a speculating
+        session's tree row. With both flags on every kind fuses, so every
+        open session counts."""
+        total = len(self._sessions)
+        if not members or (self.mixed_batch and self.spec_batch):
+            return total
+        speculating = sum(
+            1 for s in self._sessions.values() if s.speculating
+        )
+        if all(m.key[0] == "tree" for m in members):
+            return speculating
+        if self.spec_batch:
+            return total - speculating
+        return total
 
     def _ragged_compat(self, members: list, cand) -> bool:
-        """The ComputeQueue group-membership predicate of the mixed ragged
-        dispatch: decode steps ("decode1") and prefill chunks ("chunkm")
-        fuse when they agree on layers, adapter and dtype; a group holds at
-        most ONE chunk and at most max_batch decode members (the chunk
+        """The ComputeQueue group-membership predicate of the ragged
+        dispatch. Mixable kinds follow the flags: decode steps ("decode1")
+        and prefill chunks ("chunkm") with mixed_batch, tree-verify rows
+        ("tree") with spec_batch, all three cross-kind when both are on.
+        Members must agree on layers, adapter and dtype; a group holds at
+        most ONE chunk and at most max_batch other members (the chunk
         rides the +1 group slot). Any other kind coalesces by exact key."""
-        mixable = {"decode1", "chunkm"} if self.mixed_batch else set()
+        mixable = set()
+        if self.mixed_batch:
+            mixable |= {"decode1", "chunkm"}
+        if self.spec_batch:
+            mixable.add("tree")
         keys = [m.key for m in members]
         if cand.key[0] not in mixable or keys[0][0] not in mixable:
             return cand.key == keys[0]
@@ -1079,19 +1369,22 @@ class BlockServer:
         return sum(1 for k in kinds if k != "chunkm") < self.max_batch
 
     def _compute_ragged_group(self, members: list) -> list:
-        """Runs on the compute thread: ONE group of decode steps and at most
-        one prefill chunk, as the compat predicate admitted them. Returns
-        one outcome per member, as _compute_step_group does.
+        """Runs on the compute thread: ONE group of decode steps, tree-verify
+        steps and at most one prefill chunk, as the compat predicate
+        admitted them. Returns one outcome per member, as
+        _compute_step_group does.
 
-        Members whose KV is gone fail alone. A chunk-free group is a merged
-        decode group; a lone chunk runs solo; everything else runs as ONE
-        ragged span dispatch via executor.ragged_group, replayed per kind
-        if the fused dispatch fails."""
+        Members whose KV is gone fail alone. A chunk-free, tree-free group
+        is a merged decode group; a lone chunk or a lone tree runs solo;
+        everything else runs as ONE ragged span dispatch via
+        executor.ragged_group, replayed per kind if the fused dispatch
+        fails."""
         results: list = [None] * len(members)
         decode_idx: list[int] = []
+        tree_idx: list[int] = []
         chunk_idx: list[int] = []
         for i, m in enumerate(members):
-            if not isinstance(m, (_BatchMember, _ChunkMember)):
+            if not isinstance(m, (_BatchMember, _ChunkMember, _TreeMember)):
                 raise TypeError(
                     f"ragged group member of kind {type(m).__name__}"
                 )
@@ -1101,28 +1394,40 @@ class BlockServer:
             # kind's solo path here)
             elif isinstance(m, _ChunkMember):
                 chunk_idx.append(i)
+            elif isinstance(m, _TreeMember):
+                tree_idx.append(i)
             else:
                 decode_idx.append(i)
-        if not chunk_idx:
+        if not chunk_idx and not tree_idx:
             outs = self._compute_step_group([members[i] for i in decode_idx])
-        elif not decode_idx:
+            order = decode_idx
+        elif not decode_idx and not tree_idx:
             outs = [self._solo_chunk_step(members[chunk_idx[0]])]
+            order = chunk_idx
+        elif len(tree_idx) == 1 and not decode_idx and not chunk_idx:
+            outs = [self._solo_tree_step(members[tree_idx[0]])]
+            order = tree_idx
         else:
-            group = [members[i] for i in decode_idx + chunk_idx]
+            # member-major row order: decodes, then trees, then the chunk
+            # LAST
+            order = decode_idx + tree_idx + chunk_idx
+            group = [members[i] for i in order]
             try:
-                # member-major row order: the decodes, then the chunk LAST
                 outs = self._dispatch_ragged(group)
             except Exception as e:
                 logger.warning(
-                    "ragged dispatch of %d decodes + %d chunks failed (%r); "
-                    "replaying solo", len(decode_idx), len(chunk_idx), e,
+                    "ragged dispatch of %d decodes + %d trees + %d chunks "
+                    "failed (%r); replaying solo",
+                    len(decode_idx), len(tree_idx), len(chunk_idx), e,
                 )
                 outs = [
                     self._solo_chunk_step(m) if isinstance(m, _ChunkMember)
+                    else self._solo_tree_step(m)
+                    if isinstance(m, _TreeMember)
                     else self._solo_member_step(m)
                     for m in group
                 ]
-        for i, out in zip(decode_idx + chunk_idx, outs):
+        for i, out in zip(order, outs):
             results[i] = out
         return results
 
@@ -1135,52 +1440,78 @@ class BlockServer:
             return e
 
     def _dispatch_ragged(self, group: list) -> list:
-        """ONE ragged span dispatch for decode steps and one prefill chunk
-        (group[-1]). Every member's KV goes in speculatively and commit or
+        """ONE ragged span dispatch for any admitted mix of decode steps,
+        tree-verify steps and at most one prefill chunk (group[-1] when
+        present). Every member's KV goes in speculatively and commit or
         rollback stays PER KIND:
 
         - decode members commit after the dispatch succeeds and roll back
           to their committed state on failure;
         - the chunk commits only on its stream's LAST chunk and is
           TRUNCATED to its pre-dispatch length on failure (a rollback
-          would also discard the stream's earlier, still-wanted chunks)."""
+          would also discard the stream's earlier, still-wanted chunks);
+        - tree members never commit here: on failure each is truncated to
+          its pre-dispatch length and replays solo; on success the
+          surviving slots settle when the session's next accept arrives."""
         t0 = clock.perf_counter()
         now = clock.monotonic()
         for m in group:
             m.session.last_step_at = now
-        chunk = group[-1]
-        decodes = group[:-1]
-        chunk_snap = [int(x) for x in self.manager.context_lens(chunk.handle)]
+        chunk = group[-1] if isinstance(group[-1], _ChunkMember) else None
+        decodes = [m for m in group if isinstance(m, _BatchMember)]
+        trees = [m for m in group if isinstance(m, _TreeMember)]
+        # pre-dispatch speculative lengths: the truncate targets on failure
+        snaps = [
+            (m, [int(x) for x in self.manager.context_lens(m.handle)])
+            for m in ([chunk] if chunk is not None else []) + trees
+        ]
         try:
             out, _combined = self.executor.ragged_group(
                 [m.handle for m in group], [m.hidden for m in group],
+                tree_masks=[
+                    m.tree_mask if isinstance(m, _TreeMember) else None
+                    for m in group
+                ],
+                depths_list=[
+                    m.depths if isinstance(m, _TreeMember) else None
+                    for m in group
+                ],
                 layers=group[0].session.layers,
             )
         except Exception:
-            if self.manager.epoch_valid(chunk.handle):
-                self.manager.truncate_speculative(chunk.handle, chunk_snap)
+            for m, snap in snaps:
+                if self.manager.epoch_valid(m.handle):
+                    self.manager.truncate_speculative(m.handle, snap)
             for m in decodes:
                 if self.manager.epoch_valid(m.handle):
                     self.manager.rollback(m.handle)
             raise
         for m in decodes:
             self.manager.commit(m.handle)
-        if chunk.last:
+        if chunk is not None and chunk.last:
             self.manager.commit(chunk.handle)
         dt_ms = (clock.perf_counter() - t0) * 1000.0
         ntok = sum(
             m.handle.batch_size * int(m.hidden.shape[1]) for m in group
         )
         self.ragged_group_dispatches += 1
-        self.ragged_cross_kind_dispatches += 1
-        self.mixed_dispatches += 1
-        self.mixed_tokens += ntok
+        kinds = bool(decodes) + bool(trees) + (chunk is not None)
+        if kinds > 1:
+            self.ragged_cross_kind_dispatches += 1
+        if chunk is not None:
+            self.mixed_dispatches += 1
+            self.mixed_tokens += ntok
+            # the others ran inside a mid-stream prefill's dispatch
+            self.decode_steps_interleaved += len(group) - 1
+        elif self._chunking_sessions:
+            self.decode_steps_interleaved += len(group)
+        if trees:
+            self.tree_group_dispatches += 1
+            self.tree_group_members += len(trees)
         self.step_dispatches += 1
         self.step_tokens += ntok
-        # the decodes ran inside a mid-stream prefill's dispatch
-        self.decode_steps_interleaved += len(decodes)
         # slice the member-major token-packed [R, D] result back out:
-        # decode members get [b, 1, D], the chunk [b, t, D]
+        # decode members get [b, 1, D], trees and the chunk [b, t, D]
         outs = []
         off = 0
         for m in group:
@@ -1189,6 +1520,92 @@ class BlockServer:
             outs.append((out[off:off + b * t].reshape(b, t, -1), dt_ms))
             off += b * t
         return outs
+
+    # ------------------------------------------------- mid-chain pruning
+    def _prune_tree(self, out: torch.Tensor, prune: dict):
+        """Per-row keep indices from the MidLMHead over this span's output
+        hidden; None if no pruner head is available (the client then
+        verifies the full tree)."""
+        mgr = self._ensure_pruner(float(prune.get("threshold", 0.05)))
+        if mgr is None:
+            return None
+        from bloombee_tpu_torch.spec.tree import DraftTree
+
+        tokens = np.asarray(prune["tokens"], dtype=np.int64)  # [B, T]
+        parents = np.asarray(prune["parents"], dtype=np.int32)
+        max_keep = int(prune.get("max_keep", tokens.shape[1]))
+        mgr._pruner.max_keep = max_keep
+        bsz, t = tokens.shape
+        # one batched head call for every row's nodes
+        all_probs = mgr._head.probs(
+            out.float().reshape(bsz * t, -1)
+        ).reshape(bsz, t, -1)
+        rows = []
+        for i in range(bsz):
+            tree = DraftTree(tokens=tokens[i], parents=parents)
+            # node 0 is the certain token: its "root" distribution is a
+            # one-hot so it always survives the threshold
+            root = np.zeros(all_probs.shape[2], dtype=np.float64)
+            root[int(tokens[i, 0])] = 1.0
+            rows.append(mgr._pruner.keep_indices(tree, all_probs[i], root))
+        return np.stack(rows)
+
+    async def _ensure_pruner_loaded(self) -> None:
+        if self._pruner_manager is not None or self._pruner_unavailable:
+            return
+        if self._pruner_lock is None:
+            self._pruner_lock = lockwatch.async_lock("server.pruner")
+        async with self._pruner_lock:
+            if self._pruner_manager is None and not self._pruner_unavailable:
+                await asyncio.to_thread(self._load_pruner)
+
+    def _load_pruner(self) -> None:
+        """The MidLMHead: a saved head (BBTPU_PRUNER_CKPT) when present,
+        else the checkpoint's final norm + lm_head. A server without a
+        model_dir has no head: pruning degrades to the full tree."""
+        if self.model_dir is None:
+            self._pruner_unavailable = True
+            return
+        from bloombee_tpu_torch.spec.pruner import (
+            MidHeadTrainer,
+            PrunerManager,
+        )
+
+        dtype = self.executor.compute_dtype
+        try:
+            mgr = PrunerManager(method=env.get("BBTPU_PRUNER_METHOD"))
+            ckpt = env.get("BBTPU_PRUNER_CKPT")
+            if ckpt and os.path.exists(MidHeadTrainer.ckpt_path(ckpt)):
+                try:
+                    mgr._head = MidHeadTrainer.load(
+                        ckpt, dtype=dtype, device=self.device
+                    ).head
+                except Exception as e:
+                    # a torn checkpoint degrades to the checkpoint's head
+                    logger.warning(
+                        "pruner checkpoint unreadable (%s); fresh init", e
+                    )
+            if mgr._head is None:
+                from bloombee_tpu_torch.models.checkpoint import (
+                    load_client_params,
+                )
+
+                client = load_client_params(
+                    self.model_dir, dtype=dtype, device=self.device
+                )
+                mgr.ensure_head(
+                    client["lm_head"], client["norm"], self.spec.rms_norm_eps
+                )
+            self._pruner_manager = mgr
+        except Exception as e:
+            logger.warning("pruner unavailable: %s", e)
+            self._pruner_unavailable = True
+
+    def _ensure_pruner(self, threshold: float):
+        if self._pruner_manager is None:
+            return None
+        self._pruner_manager.set_request_threshold(threshold)
+        return self._pruner_manager
 
     def _fetch(self, out_dev) -> torch.Tensor:
         """The step's output on the host, in the wire dtype."""

@@ -103,6 +103,27 @@ Phases:
    servers' batching counters from `rpc_info`; for (a) also one session
    alone, the bytes a decode step moves on the wire and the head's device
    time; and the card's name and power limit.
+6. Speculative decoding served in bf16 over phase 4's weights, two runs,
+   each with its own registry and two port BlockServers (blocks [0, 16)
+   and [16, 32)), four push sessions of the port client, each
+   `generate_speculative`-ing 32 greedy tokens from a 1000-token prompt
+   (so every tree verify sees more than 512 tokens of context) with a
+   `GreedyTreeDrafter` (2, 2, 1) over a `LocalDraftModel` that shares
+   the target's tensors; launch counts reset and read around each run
+   (paths "spec_solo", "spec_batched"):
+   (d) server defaults and the self-drafter (all 32 layers, the client's
+       head): every tree verify a solo dispatch on the paged chunk kernel,
+       chunk launches = each server's layers x its tree steps, the
+       drafters' accept rate (accepted over drafted levels) above 0.5;
+   (e) `spec_batch=True`, a 2-layer drafter and a 100 ms gather window:
+       tree groups on both servers (mean width > 1), ragged launches =
+       each server's layers x its tree groups, chunk launches = its
+       layers x its solo tree dispatches.
+   Both are held teacher-forced as (b) and (c) are, at every committed
+   position (the prompt's last, then each round's accepted tree nodes).
+   No run may replay a group or decline the ragged path. Prints per-token
+   time, rounds, tokens per round, the drafters' and the servers' accept
+   rates and the launches by kernel, and the card's name and power limit.
 
 Prints the card's name and power limit, per-phase results, a
 `{"kernels": [...]}` line, and as its last line
@@ -2054,6 +2075,7 @@ def phase_serving(profile: bool = False) -> dict[str, dict]:
         )
     torch.cuda.empty_cache()
     launches.update(phase_served(layers, spec, client, gen))
+    launches.update(phase_spec(layers, spec, client, gen))
     return launches
 
 
@@ -2103,13 +2125,14 @@ def served_reference(layers, spec, local, prompts, follows, n_new,
                      feed=None, chunk=0, dtype=None):
     """The 4 sessions solo on one in-process SpanExecutor with the server's
     calls (prefill for T>1, in `chunk`-token chunks as a chunking server
-    cuts a prompt; B=1 decode for T=1): the prompt, n_new - 1 decodes, the
-    follow-up turn and one decode, in bf16 or (`dtype`, `layers` in it)
-    in f32 on the same bf16 inputs. Each decode feeds the
+    cuts a prompt; B=1 decode for T=1): the prompt, n_new - 1 decodes and
+    (unless `follows` is None) the follow-up turn and one decode, in bf16
+    or (`dtype`, `layers` in it) in f32 on the same bf16 inputs. Each
+    decode feeds the
     reference's own greedy token (the client's head on the executor's
     output gathered in f32) or, teacher-forced, `feed[i]`: the tokens the
     served run chose. Returns per session (last-position hidden states
-    [n_new + 2, D] f32, the reference's greedy tokens) and the decode
+    [n_new (+ 2), D] f32, the reference's greedy tokens) and the decode
     steps' wall times."""
     import torch
 
@@ -2157,11 +2180,12 @@ def served_reference(layers, spec, local, prompts, follows, n_new,
                 for k in range(n_new - 1):
                     outs.append(decode(h, nxt(k, tokens)))
                     tokens.append(head(outs[-1]))
-                outs.append(ex.prefill(h, embed(follows[i : i + 1]),
-                                       fetch=False))
-                tokens.append(head(outs[-1]))
-                outs.append(decode(h, nxt(n_new, tokens)))
-                tokens.append(head(outs[-1]))
+                if follows is not None:
+                    outs.append(ex.prefill(h, embed(follows[i : i + 1]),
+                                           fetch=False))
+                    tokens.append(head(outs[-1]))
+                    outs.append(decode(h, nxt(n_new, tokens)))
+                    tokens.append(head(outs[-1]))
                 sessions.append((
                     torch.cat([o[:, -1] for o in outs]).float(),
                     torch.cat(tokens).cpu(),
@@ -2365,9 +2389,10 @@ def served_last_hidden(run, n_new):
             for r in run["recs"]]
 
 
-def hold_teacher_forced(local, run, ref, truth, n_new) -> dict:
-    """A served run against the solo executor fed the tokens the served run
-    chose, in bf16 (`ref`) and in f32 (`truth`, the same bf16 inputs).
+def hold_teacher_forced(local, lasts, tokens, ref, truth) -> dict:
+    """A served run's last-position outputs and tokens per session against
+    the solo executor fed the tokens the served run chose, in bf16 (`ref`)
+    and in f32 (`truth`, the same bf16 inputs).
 
     - A greedy token may differ from the bf16 reference's only where the
       reference's top-1 minus top-2 logit gap is below the largest logit
@@ -2393,7 +2418,7 @@ def hold_teacher_forced(local, run, ref, truth, n_new) -> dict:
 
     ok, bitwise, worst, flips, sessions = True, True, 0.0, 0, []
     for last, toks, (ref_last, ref_toks), (true_last, _) in zip(
-        served_last_hidden(run, n_new), run["tokens"], ref, truth
+        lasts, tokens, ref, truth
     ):
         diff = (last - ref_last).abs()
         limit = 1e-2 * ref_last.abs() + 1e-3
@@ -2501,7 +2526,10 @@ def phase_served(layers, spec, client, gen) -> dict:
                 )[0]
                 for ls, dt in ((layers, None), (layers32, torch.float32))
             )
-            held = hold_teacher_forced(local, run, ref, truth, n_new)
+            held = hold_teacher_forced(
+                local, served_last_hidden(run, n_new), run["tokens"], ref,
+                truth,
+            )
         stats["held"] = held
         infos = run["infos"]
         decode_dispatches = [i["batch_dispatches"] + i["batch_solo_steps"]
@@ -2558,6 +2586,337 @@ def phase_served(layers, spec, client, gen) -> dict:
     say(card_line())
     if failures:
         raise AssertionError("served runs failed: " + "; ".join(failures))
+    return by_path
+
+
+# ------------------------------------------------------------- phase 6
+SPEC_RUNS = (
+    # (path, label, server keyword arguments, drafter depth (None: every
+    # layer, the self-drafter), gather window in ms)
+    ("spec_solo", "(d) solo tree verify, self-drafter", {}, None, 0),
+    ("spec_batched", "(e) spec_batch, 2-layer drafter",
+     {"spec_batch": True}, 2, 100),
+)
+
+
+def spec_tap(session) -> dict:
+    """Record, without changing them, what an open session's steps return
+    ("outs"), when they returned ("times") and how long each took
+    ("step_ms"), the accept that each step and the final `send_accept`
+    carry ("accepts"), and each span's replies' `t_dispatch_ms`
+    ("dispatch_ms", per span)."""
+    rec = {"outs": [], "times": [], "step_ms": [], "accepts": [],
+           "dispatch_ms": [[] for _ in session._spans]}
+    step, send_accept = session.step, session.send_accept
+
+    async def tapped_step(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = await step(*args, **kwargs)
+        rec["times"].append(time.perf_counter())
+        rec["step_ms"].append((rec["times"][-1] - t0) * 1e3)
+        rec["outs"].append(out)
+        rec["accepts"].append(kwargs.get("accept"))
+        return out
+
+    async def tapped_accept(accept, per_span=None):
+        rec["accepts"].append(accept)
+        return await send_accept(accept, per_span=per_span)
+
+    def tapped_recv(k, recv):
+        async def recv_meta():
+            item = await recv()
+            if item is not None and "t_dispatch_ms" in item[0]:
+                rec["dispatch_ms"][k].append(item[0]["t_dispatch_ms"])
+            return item
+        return recv_meta
+
+    session.step, session.send_accept = tapped_step, tapped_accept
+    for k, span in enumerate(session._spans):
+        span.stream.recv = tapped_recv(k, span.stream.recv)
+    return rec
+
+
+def spec_committed(rec):
+    """A B=1 speculative session's outputs at its committed positions,
+    [n_new, D] f32: the prompt's last position, then each round's accepted
+    tree nodes in path order (round r's accept rides round r + 1's step,
+    the last one the final `send_accept`)."""
+    import torch
+
+    rows = [rec["outs"][0][0, -1:]]
+    for out, acc in zip(rec["outs"][1:], rec["accepts"][2:]):
+        idx = torch.as_tensor(acc[0], dtype=torch.long, device=out.device)
+        rows.append(out[0, idx])
+    return torch.cat(rows).float()
+
+
+def spec_run(layers, spec, client, prompts, n_new, server_kw, draft_depth,
+             window_ms) -> dict:
+    """One speculative served run: a port registry and two port
+    BlockServers (`server_kw`) on a ServerLoop, and 4 port-client sessions
+    on this thread's loop, each `generate_speculative`-ing n_new greedy
+    tokens from its prompt with its own GreedyTreeDrafter (2, 2, 1) over a
+    LocalDraftModel of the target's first `draft_depth` layers (all of them
+    when None) and the client's parameters, sharing their tensors. Each
+    session closes when its generation ends. Launch counts are reset just
+    before the sessions step and read just after; the gather window is
+    `window_ms` for the run."""
+    import dataclasses
+    import os
+
+    import torch
+
+    from bloombee_tpu_torch.client.speculative import generate_speculative
+    from bloombee_tpu_torch.ops.cuda import build
+    from bloombee_tpu_torch.spec.drafter import (
+        GreedyTreeDrafter,
+        LocalDraftModel,
+    )
+    from bloombee_tpu_torch.spec.shape import tree_nodes
+
+    n_layers = spec.num_hidden_layers
+    spans = ((0, n_layers // 2), (n_layers // 2, n_layers))
+    depth = draft_depth or n_layers
+    draft = LocalDraftModel(
+        dataclasses.replace(spec, num_hidden_layers=depth), layers[:depth],
+        client, device="cuda",
+    )
+    drafters = [GreedyTreeDrafter(draft) for _ in range(4)]
+    max_length = (prompts.shape[1] + n_new
+                  + 2 * (tree_nodes(drafters[0].branching) + 1))
+    draft_ms = [[] for _ in drafters]
+
+    def timed_build(build_batch, into):
+        # the drafter's logits reach the host inside build_batch, so its
+        # host time includes the device work
+        def build(contexts):
+            t0 = time.perf_counter()
+            out = build_batch(contexts)
+            into.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return build
+
+    for d, into in zip(drafters, draft_ms):
+        d.build_batch = timed_build(d.build_batch, into)
+
+    async def one_session(model, i):
+        async with model.inference_session(max_length, 1) as session:
+            rec = spec_tap(session)
+            rec["draft_ms"] = draft_ms[i]
+            rec["t0"] = time.perf_counter()
+            ids = await generate_speculative(
+                model, drafters[i], prompts[i : i + 1],
+                max_new_tokens=n_new, session=session,
+            )
+        rec["tokens"] = ids[0, -n_new:]
+        return rec
+
+    async def served(reg_port):
+        models = [port_client(client, spec, reg_port, "llama3-8b")
+                  for _ in range(4)]
+        try:
+            torch.cuda.synchronize()
+            build.reset_launch_counts()
+            t0 = time.perf_counter()
+            recs = await asyncio.gather(*(
+                one_session(models[i], i) for i in range(4)
+            ))
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            launches = dict(build.LAUNCHES)
+        finally:
+            for m in models:
+                await m.manager.registry.close()
+        return {"recs": recs, "launches": launches, "wall_s": wall_s}
+
+    old_window = os.environ.get("BBTPU_BATCH_WINDOW_MS")
+    os.environ["BBTPU_BATCH_WINDOW_MS"] = str(window_ms)
+    try:
+        with ReplayWatch() as watch, ServerLoop() as servers_loop:
+            reg, servers = servers_loop.run(start_span_servers(
+                layers, spec, "llama3-8b", spans, torch.bfloat16, 1024,
+                **server_kw
+            ))
+            try:
+                out = asyncio.run(served(reg.port))
+                out["infos"] = [servers_loop.run(s._rpc_info({}, []))[0]
+                                for s in servers]
+                out["server_layers"] = [s.end_block - s.start_block
+                                        for s in servers]
+            finally:
+                servers_loop.run(stop_span_servers(reg, servers))
+                del servers
+    finally:
+        if old_window is None:
+            os.environ.pop("BBTPU_BATCH_WINDOW_MS", None)
+        else:
+            os.environ["BBTPU_BATCH_WINDOW_MS"] = old_window
+    out["replays"] = list(watch.seen)
+    out["drafters"] = drafters
+    del draft
+    torch.cuda.empty_cache()
+    return out
+
+
+SPEC_KEYS = ("spec_batch", "tree_steps", "tree_rows", "spec_tokens_drafted",
+             "spec_tokens_accepted", "spec_accept_rate",
+             "tree_group_dispatches", "tree_group_members",
+             "mean_tree_batch_width", "batch_solo_steps",
+             "ragged_group_dispatches", "ragged_declines")
+
+
+def spec_numbers(run, n_new) -> dict:
+    """Time to first token, per-token time, rounds, tokens per round and
+    acceptance of one speculative run (ms unless marked)."""
+    def med(xs):
+        xs = sorted(xs)
+        return xs[len(xs) // 2]
+
+    recs = run["recs"]
+    levels = [(d.levels_accepted, d.levels_drafted) for d in run["drafters"]]
+    rounds = [len(r["outs"]) - 1 for r in recs]
+    return {
+        # per round (the prefill excluded): the drafter's build_batch, the
+        # tree step's round trip and each server's reply dispatch time
+        "draft_ms_median": [med(r["draft_ms"]) for r in recs],
+        "verify_step_ms_median": [med(r["step_ms"][1:]) for r in recs],
+        "t_dispatch_ms_median": [
+            med([x for r in recs for x in r["dispatch_ms"][k][1:]])
+            for k in range(len(recs[0]["dispatch_ms"]))
+        ],
+        "ttft_ms": [(r["times"][0] - r["t0"]) * 1e3 for r in recs],
+        # after the first token: the rounds' wall time over the n_new - 1
+        # tokens they committed
+        "per_token_ms": [
+            (r["times"][-1] - r["times"][0]) * 1e3 / (n_new - 1)
+            for r in recs
+        ],
+        "rounds": rounds,
+        "tokens_per_round": [(n_new - 1) / k for k in rounds],
+        "drafter_accept_rate": [d.accept_rate for d in run["drafters"]],
+        "drafter_accept_rate_all": (
+            sum(a for a, _ in levels) / max(sum(d for _, d in levels), 1)
+        ),
+        "servers": [{k: info[k] for k in SPEC_KEYS} for info in run["infos"]],
+        "launches": run["launches"],
+        "served_run_s": run["wall_s"],
+        "replays": len(run["replays"]),
+    }
+
+
+def phase_spec(layers, spec, client, gen) -> dict:
+    """Phase 6: speculative decoding served at full width on phase 4's
+    weights, two runs (two port BlockServers over blocks [0, 16) and [16,
+    32), 1024-page arenas, a port registry, four push sessions of the port
+    client, each `generate_speculative`-ing 32 greedy tokens from a
+    1000-token prompt, so every tree verify sees more than 512 tokens of
+    context):
+
+    (d) server defaults, the self-drafter (all 32 layers and the client's
+        head, shared tensors): every tree verify is a solo dispatch on the
+        paged chunk kernel, chunk launches = each server's layers x its
+        tree steps; the drafters' accept rate above 0.5;
+    (e) `spec_batch=True`, a 2-layer drafter, a 100 ms gather window:
+        tree groups on both servers (mean width > 1), ragged launches =
+        each server's layers x its tree groups, chunk launches = layers x
+        its solo tree dispatches.
+
+    Both are held teacher-forced on their committed positions against the
+    solo executor in bf16 and an f32 truth (`hold_teacher_forced`). No run
+    may replay a group or decline the ragged path. Returns each run's
+    launch counts by path."""
+    import torch
+
+    from bloombee_tpu_torch.client import DistributedModelForCausalLM
+
+    vocab, n_new = spec.vocab_size, 32
+    prompts = torch.randint(0, vocab, (4, 1000), generator=gen, device="cuda")
+    local = DistributedModelForCausalLM(spec, client, None, device="cuda")
+    runs = {}
+    for path, label, server_kw, depth, window_ms in SPEC_RUNS:
+        runs[path] = spec_run(layers, spec, client, prompts, n_new,
+                              server_kw, depth, window_ms)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    layers32 = [{k: v.float() for k, v in layer.items()} for layer in layers]
+    by_path, failures = {}, []
+    for path, label, server_kw, depth, window_ms in SPEC_RUNS:
+        run = runs[path]
+        tokens = [r["tokens"] for r in run["recs"]]
+        lasts = [spec_committed(r) for r in run["recs"]]
+        if any(last.shape[0] != n_new for last in lasts):
+            failures.append(f"{path}: committed outputs "
+                            f"{[last.shape[0] for last in lasts]} != {n_new}")
+            continue
+        ref, truth = (
+            served_reference(ls, spec, local, prompts, None, n_new,
+                             feed=tokens, dtype=dt)[0]
+            for ls, dt in ((layers, None), (layers32, torch.float32))
+        )
+        held = hold_teacher_forced(local, lasts, tokens, ref, truth)
+        stats = spec_numbers(run, n_new)
+        stats["held"] = held
+        launches = by_path[path] = run["launches"]
+        infos, per = run["infos"], run["server_layers"]
+        if path == "spec_solo":
+            want = {"paged_chunk_attention": sum(
+                n * i["tree_steps"] for n, i in zip(per, infos)
+            )}
+            if stats["drafter_accept_rate_all"] <= 0.5:
+                failures.append(f"{path}: drafter accept rate "
+                                f"{stats['drafter_accept_rate_all']:.3f}")
+        else:
+            want = {
+                "paged_ragged_attention": sum(
+                    n * i["tree_group_dispatches"] for n, i in zip(per, infos)
+                ),
+                "paged_chunk_attention": sum(
+                    n * (i["tree_steps"] - i["tree_group_members"])
+                    for n, i in zip(per, infos)
+                ),
+            }
+            if not all(i["tree_group_dispatches"] > 0
+                       and i["mean_tree_batch_width"] > 1 for i in infos):
+                failures.append(f"{path}: a server formed no tree group")
+        stats["launches_want"] = want
+        say(f"[{path}] {label}: Llama-3-8B bf16, 4 port-client sessions x "
+            f"{n_new} tokens by generate_speculative; held against the "
+            f"solo executor: {held}; per-token "
+            f"{[round(x, 2) for x in stats['per_token_ms']]} ms (drafter "
+            f"{[round(x, 1) for x in stats['draft_ms_median']]}, verify "
+            f"step {[round(x, 1) for x in stats['verify_step_ms_median']]}"
+            f" ms a round, medians); rounds "
+            f"{stats['rounds']}; tokens per round "
+            f"{[round(x, 2) for x in stats['tokens_per_round']]}; drafter "
+            f"accept rate {stats['drafter_accept_rate_all']:.4f}; servers' "
+            f"spec_accept_rate "
+            f"{[round(i['spec_accept_rate'], 4) for i in infos]}; launches "
+            f"{launches} (wanted {want}); replays {run['replays']}")
+        say(f"[{path}] " + json.dumps(stats))
+        if not held["ok"]:
+            failures.append(f"{path}: differs from the solo executor")
+        if run["replays"]:
+            failures.append(f"{path}: group replays {run['replays']}")
+        if any(i["ragged_declines"] for i in infos):
+            failures.append(f"{path}: ragged declines")
+        if not all(i["tree_steps"] > 0 for i in infos):
+            failures.append(f"{path}: a server verified no tree")
+        for name, n in want.items():
+            if launches.get(name, 0) != n:
+                failures.append(f"{path}: {launches.get(name, 0)} {name} "
+                                f"launches, want {n}")
+        # the prompts' flash prefill, and the path's own tree kernel
+        main = ("paged_chunk_attention" if path == "spec_solo"
+                else "paged_ragged_attention")
+        missing = [k for k in ("flash_attention", main)
+                   if not launches.get(k)]
+        if missing:
+            failures.append(f"{path}: never launched {missing}")
+    del layers32
+    torch.cuda.empty_cache()
+    say(card_line())
+    if failures:
+        raise AssertionError("speculative runs failed: "
+                             + "; ".join(failures))
     return by_path
 
 

@@ -23,7 +23,7 @@ tests/test_torch_server.py, whose fixtures and helpers this module imports
 - mixed batch: decode steps fuse into the chunk's ragged dispatch with HF
   tokens; it is off by default;
 - `_ragged_compat` and `_batch_group_hint` answer as the JAX server's on
-  the same member keys, and a tree step is still refused.
+  the same member keys (tree members: tests/test_torch_spec.py).
 """
 
 import asyncio
@@ -46,7 +46,7 @@ from bloombee_tpu_torch.server.block_server import (
     _Session,
 )
 from bloombee_tpu_torch.swarm.registry import RegistryClient
-from bloombee_tpu_torch.utils import clock, env
+from bloombee_tpu_torch.utils import clock
 from bloombee_tpu_torch.wire import rpc as t_rpc
 from test_torch_server import (  # noqa: F401  (fixtures)
     REGISTRY_CLIENTS,
@@ -636,7 +636,7 @@ def test_ragged_compat_and_group_hint_match_jax(mixed_batch, max_batch):
         },
     )
     port_self = types.SimpleNamespace(
-        mixed_batch=mixed_batch, max_batch=max_batch,
+        mixed_batch=mixed_batch, spec_batch=False, max_batch=max_batch,
         _sessions=jax_self._sessions,
     )
     checked = 0
@@ -653,31 +653,3 @@ def test_ragged_compat_and_group_hint_match_jax(mixed_batch, max_batch):
     assert BlockServer._batch_group_hint(port_self) == \
         JaxServer._batch_group_hint(jax_self) == 3
     assert checked == 6 * (6 + 36 + 216)
-
-
-# ---------------------------------------------------------------- refusals
-def test_tree_step_refused_by_batching_server(loop, batch_server):
-    """A batching server still refuses a tree-verify step with an error
-    frame naming the key; there is no spec_batch and no BBTPU_SPEC_BATCH
-    (ROADMAP item 13)."""
-    assert "tree" in t_server.REFUSED_STEP_KEYS
-    assert "BBTPU_SPEC_BATCH" not in env._REGISTRY
-    with pytest.raises(TypeError):
-        BlockServer(model_uid="x", start=0, end=1, spec_batch=True)
-
-    async def go():
-        conn = await t_rpc.connect("127.0.0.1", batch_server.port)
-        try:
-            stream = await conn.open_stream("rpc_inference", {
-                "session_id": "refuse-tree", "batch_size": 1,
-                "max_length": 16,
-            })
-            await stream.send({"step": 0, "tree": True, "commit": False},
-                              [torch.zeros((1, 2, 64))])
-            with pytest.raises(t_rpc.RpcError) as err:
-                await stream.recv()
-            return err.value
-        finally:
-            await conn.close()
-
-    assert "'tree'" in str(run(loop, go()))

@@ -18,8 +18,9 @@ this module imports:
   records and seeded rng; `out_digest`, `SanityGate` and `tensors_close`
   agree with the JAX package, and an integrity client verifies a JAX
   integrity server's digests;
-- every refused config field, step argument and method raises and names
-  what it asks for.
+- every refused config field and method raises and names what it asks
+  for (the speculative step arguments are served since the port has
+  speculative decoding: tests/test_torch_spec.py).
 """
 
 import random
@@ -423,18 +424,7 @@ def test_refused_config_fields(field, value, item):
 
 
 @pytest.mark.parametrize("call,name,item", [
-    (lambda s: s.step(torch.zeros(1, 2, 64), tree_mask=np.ones((1, 2, 2))),
-     "tree_mask", "13"),
-    (lambda s: s.step(torch.zeros(1, 2, 64), depths=[[0, 1]]), "depths",
-     "13"),
-    (lambda s: s.step(torch.zeros(1, 1, 64), accept=[[0]]), "accept", "13"),
-    (lambda s: s.step(torch.zeros(1, 1, 64), prune={"k": 1}), "prune",
-     "13"),
-    (lambda s: s.step(torch.zeros(1, 1, 64), accept_per_span=[None]),
-     "accept_per_span", "13"),
-    (lambda s: s.step(torch.zeros(1, 1, 64), rows=(0, 1)), "rows", "13"),
     (lambda s: s.decode_n(np.zeros(1), 4), "decode_n", "11"),
-    (lambda s: s.send_accept([[0]]), "send_accept", "13"),
 ])
 def test_refused_session_calls(call, name, item):
     """Refused before the session touches its manager or the wire."""

@@ -75,9 +75,16 @@ def test_port_imports_with_jax_and_the_jax_package_blocked(probe):
         "bloombee_tpu_torch.client.sequence_manager",
         "bloombee_tpu_torch.client.session",
         "bloombee_tpu_torch.swarm.spans",
+        "bloombee_tpu_torch.client.speculative",
+        "bloombee_tpu_torch.spec",
+        "bloombee_tpu_torch.spec.tree",
+        "bloombee_tpu_torch.spec.verify",
+        "bloombee_tpu_torch.spec.shape",
+        "bloombee_tpu_torch.spec.drafter",
+        "bloombee_tpu_torch.spec.pruner",
     ):
         assert name in probe["modules"]
-    assert len(probe["modules"]) >= 47  # every module was walked
+    assert len(probe["modules"]) >= 61  # every module was walked
 
 
 def test_chip_smoke_fails_without_a_gpu(probe):
