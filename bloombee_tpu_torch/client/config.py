@@ -9,8 +9,9 @@ sequence manager -> sessions.
 Fields asking for what the port does not have yet default to off, and a
 truthy value raises ValueError naming the field and its ROADMAP item (the
 loud refusal of the server's `REFUSED_STEP_KEYS`); no `BBTPU_*` switch is
-declared for them. In the JAX package `resume=None` means `BBTPU_RESUME`,
-which is on by default; here it is off.
+declared for them. `prefix_cache`, `kv_repl_every` and `resume` default to
+None, which defers to BBTPU_PREFIX_CACHE (off), BBTPU_REPL_EVERY (0) and
+BBTPU_RESUME (on), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -20,9 +21,6 @@ import dataclasses
 # field -> (what it asks for, ROADMAP Queue 1 item)
 UNPORTED_FIELDS = {
     "server_decode": ("server-side multi-step decode", 11),
-    "prefix_cache": ("the shared-prefix cache probe", 12),
-    "kv_repl_every": ("standby KV replication", 12),
-    "resume": ("reconnect-resume", 12),
     "active_adapter": ("per-request LoRA adapters", 16),
     "audit_p": ("cross-replica activation audits", 19),
 }
@@ -55,8 +53,16 @@ class ClientConfig:
     active_adapter: str | None = None
     server_decode: bool = False
     server_decode_chunk: int = 32
-    prefix_cache: bool | None = False
-    kv_repl_every: int | None = 0
+    # shared-prefix KV cache: probe servers' page pools before the first
+    # prefill and ship only the uncached suffix. None -> BBTPU_PREFIX_CACHE;
+    # servers with the cache off report zero matches
+    prefix_cache: bool | None = None
+    # standby KV replication interval in sealed pages: every N newly sealed
+    # pages each span's server ships them (kv_put) into a same-span
+    # standby's prefix pool, so failover replays at most one interval plus
+    # the unsealed tail. Needs prefix_cache; 0 disables; None ->
+    # BBTPU_REPL_EVERY
+    kv_repl_every: int | None = None
     # load-aware routing: add each server's predicted queue delay (from its
     # live load advert) to the Dijkstra edge cost
     load_aware_routing: bool = True
@@ -70,8 +76,12 @@ class ClientConfig:
     # fair-share identity reported to servers' admission controllers; None
     # uses one id per client process
     client_id: str | None = None
-    # not ported (UNPORTED_FIELDS): must stay off
-    resume: bool | None = False
+    # reconnect-resume: after a stream failure, re-attach each span's
+    # lease-parked session and retransmit the failed step under its
+    # original id (at-most-once server-side, zero replay); declined
+    # resumes fall back to reroute + replay. None -> BBTPU_RESUME
+    resume: bool | None = None
+    # one span's resume handshake budget (the lease clock is running)
     resume_timeout: float = 10.0
     # wire keepalive interval for the client side of every span connection;
     # None -> BBTPU_KEEPALIVE_S env, 0 disables

@@ -1,6 +1,6 @@
 """Client-side integrity layer: sanity gate, tolerance compare, digests
-(a copy of bloombee_tpu/client/integrity.py over torch, with
-`out_digest` of bloombee_tpu/kv/prefix.py).
+(a copy of bloombee_tpu/client/integrity.py over torch; `out_digest`
+is defined in kv/prefix.py, as in the JAX package, and re-exported here).
 
 In a public swarm, peers may return incorrect outputs, maliciously or via
 bad hardware, and the client feeds whatever hidden states a server returns
@@ -23,12 +23,11 @@ the JAX package (``BBTPU_AUDIT_P``) are not ported (ROADMAP item 19).
 
 from __future__ import annotations
 
-import hashlib
 import logging
 
-import numpy as np
 import torch
 
+from bloombee_tpu_torch.kv.prefix import out_digest  # noqa: F401
 from bloombee_tpu_torch.utils import env
 from bloombee_tpu_torch.wire.rpc import RpcError
 from bloombee_tpu_torch.wire.tensor_codec import dtype_for_name
@@ -41,17 +40,6 @@ env.declare(
     "output + out_digest verification)",
 )
 
-# span-output digests: one-shot, not chained (bloombee_tpu/kv/prefix.py)
-_DIGEST_VERSION = b"bbtpu-outdigest-v1"
-# numpy's names for the wire's float dtypes (ml_dtypes names bf16
-# "bfloat16"): the digest hashes the dtype's name
-_NP_NAMES = {
-    torch.float32: "float32",
-    torch.bfloat16: "bfloat16",
-    torch.float16: "float16",
-    torch.float64: "float64",
-}
-
 
 class IntegrityError(RpcError):
     """A span output failed an integrity check. Subclasses RpcError so the
@@ -60,20 +48,6 @@ class IntegrityError(RpcError):
 
 def _as_f32(x) -> torch.Tensor:
     return torch.as_tensor(x).detach().float()
-
-
-def out_digest(t) -> str:
-    """blake2b hex digest over a span output's exact bytes: its dtype's
-    numpy name, its shape as a Python tuple ("(2, 1, 64)") and its C-order
-    bytes — the bytes the JAX package hashes for the same numpy array."""
-    t = torch.as_tensor(t).detach().cpu().contiguous()
-    h = hashlib.blake2b(_DIGEST_VERSION, digest_size=16)
-    h.update(_NP_NAMES[t.dtype].encode("ascii"))
-    h.update(str(tuple(t.shape)).encode("ascii"))
-    flat = t.reshape(-1)
-    if flat.numel():
-        h.update(flat.view(torch.uint8).numpy().tobytes())
-    return h.hexdigest()
 
 
 def rtol_for(dtype) -> float:

@@ -149,8 +149,12 @@ class DistributedModelForCausalLM:
                 microbatch if microbatch is not None else cfg.microbatch
             ),
             embed_fn=self.embed,
+            prefix_cache=cfg.prefix_cache,
+            repl_every=cfg.kv_repl_every,
             client_id=cfg.client_id,
             overload_retries=cfg.overload_retries,
+            resume=cfg.resume,
+            resume_timeout=cfg.resume_timeout,
             keepalive_s=cfg.keepalive_s,
             integrity=cfg.integrity,
         )

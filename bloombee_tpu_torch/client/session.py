@@ -22,11 +22,28 @@ Hidden states are torch tensors on the client's device. A step's output
 is gathered in f32 there, as the JAX client gathers it; replies arrive
 from the codec as CPU tensors and move to the device once per chunk.
 
+The shared-prefix cache (`prefix_cache`, else BBTPU_PREFIX_CACHE): on
+the session's first committed prefill the client probes every span's pool
+with the prompt's page-hash chains (kv/prefix.py) and ships only the
+uncached suffix, declaring the chain-wide skip as `prefix_skip`; recovery
+probes too, so a replay re-ships only what no pool holds.
+
+Standby replication (`repl_every`, else BBTPU_REPL_EVERY; 0 = off): every
+`repl_every` newly sealed pages the client tells each span's server
+(a `kv_repl` item, no reply) to ship them to a same-span standby, and
+recovery routes through those standbys, so a failover replays at most one
+interval plus the unsealed tail.
+
+Reconnect-resume (`resume`, else BBTPU_RESUME, on): after a stream failure
+the client first re-attaches each span's lease-parked session on a fresh
+stream and retransmits the failed step under its original id; a server
+that already applied it answers from its recorded reply. Any decline falls
+back to reroute + replay.
+
 Not ported yet, and refused with NotImplementedError naming the ROADMAP
-item: `decode_n` and `rewind_decoded_tail` (item 11). The prefix probe,
-standby replication and reconnect-resume (item 12) and the cross-replica
-audits (item 19) are reached only through `ClientConfig` fields, which
-refuse them (client/config.py).
+item: `decode_n` and `rewind_decoded_tail` (item 11). The cross-replica
+audits (item 19) are reached only through `ClientConfig.audit_p`, which
+refuses them (client/config.py).
 """
 
 from __future__ import annotations
@@ -49,6 +66,7 @@ from bloombee_tpu_torch.client.sequence_manager import (
     MissingBlocksError,
     RemoteSequenceManager,
 )
+from bloombee_tpu_torch.kv.prefix import hidden_hash_chain, page_hash_chain
 from bloombee_tpu_torch.spec.tree import pruned_step_arrays
 from bloombee_tpu_torch.swarm.data import RemoteSpanInfo
 from bloombee_tpu_torch.utils import env, ledger
@@ -71,6 +89,22 @@ env.declare(
     "default within-stage micro-batch count for client sessions (>1 splits "
     "each step's batch so stage N+1 computes chunk k while stage N computes "
     "k+1 — the reference's BLOOMBEE_MICRO_BATCH_SIZE overlap)",
+)
+env.declare(
+    "BBTPU_REPL_EVERY", int, 0,
+    "session-KV replication interval: every N newly-sealed pages the "
+    "client asks each span's server to ship them (kv_put) to a standby "
+    "covering the same span, so failover replays at most one interval "
+    "plus the unsealed tail (0 = replication off)",
+)
+env.declare(
+    "BBTPU_RESUME", bool, True,
+    "reconnect-resume: after a stream failure, try to re-attach each "
+    "span's lease-parked session (resume: session_id) and retransmit the "
+    "failed step under its original id — at-most-once server-side, zero "
+    "prompt replay — before falling back to full-replay recovery. Safe "
+    "against servers with leases off: they decline and recovery proceeds "
+    "as before",
 )
 
 # default admission-control identity: one id per client process, so all of
@@ -157,11 +191,21 @@ class InferenceSession:
         step_timeout: float = 120.0,
         microbatch: int | str | None = None,  # count or "auto"
         embed_fn=None,  # ids [B, T] -> hidden; enables token-id replay
+        prefix_cache: bool | None = None,  # probe servers' shared-prefix
+        # pools before the first prefill and send only the uncached suffix
+        # (None -> BBTPU_PREFIX_CACHE)
+        repl_every: int | None = None,  # standby-KV replication interval
+        # in sealed pages (None -> BBTPU_REPL_EVERY; 0 disables)
         client_id: str | None = None,  # admission-control identity (None ->
         # one shared id per client process)
         overload_retries: int = 10,  # `overloaded` sheds a step rides out
         # (backoff + reroute) before failing: a separate budget from
         # max_retries, since a shed is the server working as designed
+        resume: bool | None = None,  # reconnect-resume after a stream
+        # failure: re-attach each span's lease-parked session and
+        # retransmit the failed step under its original id (None ->
+        # BBTPU_RESUME)
+        resume_timeout: float = 10.0,  # per-span resume handshake budget
         keepalive_s: float | None = None,  # client-side wire keepalive
         # (None -> BBTPU_KEEPALIVE_S env; 0 disables)
         integrity: bool | None = None,  # inline sanity gate + out_digest
@@ -177,6 +221,10 @@ class InferenceSession:
         self.client_id = client_id or _PROCESS_CLIENT_ID
         self.overload_retries = max(0, int(overload_retries))
         self.embed_fn = embed_fn
+        self.resume = (
+            bool(env.get("BBTPU_RESUME")) if resume is None else bool(resume)
+        )
+        self.resume_timeout = float(resume_timeout)
         self.keepalive_s = keepalive_s
         self.integrity = (
             bool(env.get("BBTPU_INTEGRITY")) if integrity is None
@@ -186,7 +234,29 @@ class InferenceSession:
         # integrity observability (tests read these)
         self.sanity_rejects = 0
         self.integrity_reroutes = 0
-        # tokens re-prefilled by recoveries
+        # reconnect-resume: streams re-attached without replay, resumes
+        # the servers declined, and the (step_id, prefix_skip) of the last
+        # transmitted step, so a post-resume retry retransmits it under
+        # the SAME id with the same suffix
+        self.resumed_streams = 0
+        self.resume_declines = 0
+        self._last_sent: tuple[int, int | None] | None = None
+        self.prefix_cache = bool(
+            env.get("BBTPU_PREFIX_CACHE") if prefix_cache is None
+            else prefix_cache
+        )
+        # standby replication: per-span state (standby address, peer id,
+        # pages announced per row) and incremental full-history hash
+        # chains keyed by page size
+        self.repl_every = int(
+            env.get("BBTPU_REPL_EVERY") if repl_every is None
+            else repl_every
+        )
+        self._repl: list[dict | None] = []
+        self._chains_by_ps: dict[int, list[list[str]]] = {}
+        # pages sealed but not yet announced to a standby, and tokens
+        # re-prefilled by recoveries
+        self.repl_lag_pages = 0
         self.failover_replayed_tokens = 0
         # within-stage micro-batch pipelining (reference
         # microbatch_config.py:84-130 overlap-only mode)
@@ -221,6 +291,7 @@ class InferenceSession:
             relay=not self.use_push,
         )
         self._spans = [await self._open_span(s) for s in route]
+        self._init_repl()
         return self
 
     async def __aexit__(self, *exc) -> None:
@@ -276,6 +347,172 @@ class InferenceSession:
             ),
         )
 
+    # ----------------------------------------------------------- prefix cache
+    async def _probe_prefix(
+        self,
+        id_rows: list[list[int]] | None = None,
+        hidden_rows: list | None = None,
+    ) -> int:
+        """Ask every span how much of each row's history its shared-prefix
+        pool holds; returns the chain-wide skippable token count (min over
+        spans AND rows: every span receives the same suffix hidden).
+
+        Probes hash token-id rows (the prompt / replay path) or [T, D]
+        hidden rows (embed-less sessions, under a distinct hash root).
+        A span advertising no page size forces 0. Wire failures propagate
+        as step errors, so the caller's retry loop rebuilds the chain: a
+        timed-out probe never leaves a stale reply on a reused stream."""
+        rows = id_rows if id_rows is not None else hidden_rows
+        builder = page_hash_chain if id_rows is not None else hidden_hash_chain
+        lens = [len(r) for r in rows] if rows else []
+        ps_list = [s.span.server_info.page_size for s in self._spans]
+        if not ps_list or any(ps <= 0 for ps in ps_list) or not any(lens):
+            return 0
+        chains_by_ps = {
+            ps: [builder(row, ps) for row in rows] for ps in set(ps_list)
+        }
+        step_id = self._step_counter
+        self._step_counter += 1
+        for s in self._spans:
+            await s.stream.send(
+                {
+                    "step": step_id,
+                    "prefix_probe": chains_by_ps[s.span.server_info.page_size],
+                },
+                [],
+            )
+        matched = None
+        for i, s in enumerate(self._spans):
+            try:
+                item = await asyncio.wait_for(
+                    s.stream.recv(), self.step_timeout
+                )
+            except OverloadedError as e:
+                self._note_shed_exc(e, s.span.peer_id)
+                raise
+            except (RpcError, OSError, asyncio.TimeoutError):
+                self.manager.ban_peer(s.span.peer_id)
+                raise
+            if item is None:
+                self.manager.ban_peer(s.span.peer_id)
+                raise RpcError(f"span {i} closed during prefix probe")
+            resp_meta, _ = item
+            _raise_if_session_lost(resp_meta)
+            self._raise_if_shed(resp_meta, s.span.peer_id)
+            span_min = min(
+                int(x) for x in resp_meta.get("prefix_matched") or [0]
+            )
+            matched = span_min if matched is None else min(matched, span_min)
+        # cap below the shortest row so the final prompt position always
+        # computes (the caller consumes its output); the uncached tail
+        # then writes into the last shared page, which the server copies
+        return max(0, min(matched or 0, min(lens) - 1))
+
+    # ------------------------------------------------------- kv replication
+    def _history_rows(self):
+        """(kind, per-row history) for hashing: ("ids", ragged id lists),
+        ("hidden", [T, D] tensors), or (None, None) when nothing is
+        committed yet (or the kinds are mixed: recovery refuses those)."""
+        if any(self._id_rows):
+            if self._history:
+                return None, None
+            return "ids", self._id_rows
+        if self._history:
+            full = torch.cat(self._history, dim=1)
+            return "hidden", [full[i] for i in range(full.shape[0])]
+        return None, None
+
+    def _full_chains(self, ps: int) -> list[list[str]] | None:
+        """Per-row hash chains over the session's FULL committed history
+        (prompt + generated) at page size `ps`, extended incrementally:
+        sealed pages already hashed are never rehashed."""
+        kind, rows = self._history_rows()
+        if kind is None:
+            return None
+        fn = page_hash_chain if kind == "ids" else hidden_hash_chain
+        cached = self._chains_by_ps.get(ps)
+        chains = [
+            fn(row, ps, chain=cached[i] if cached else None)
+            for i, row in enumerate(rows)
+        ]
+        self._chains_by_ps[ps] = chains
+        return chains
+
+    def _init_repl(self) -> None:
+        """(Re)select one standby per span for KV replication. A None slot
+        means that span can't replicate: knob off, no page size advertised,
+        a sub-span of the server (its pages would carry layers the session
+        doesn't own), or no capable same-span alternative; all degrade to
+        plain full-replay recovery."""
+        self._repl = [None] * len(self._spans)
+        if self.repl_every <= 0 or not self.prefix_cache:
+            return
+        exclude = {s.span.peer_id for s in self._spans}
+        for i, s in enumerate(self._spans):
+            info = s.span.server_info
+            if (
+                info.page_size <= 0
+                or s.span.start != info.start_block
+                or s.span.end != info.end_block
+            ):
+                continue
+            standby = self.manager.pick_standby(s.span, exclude=exclude)
+            if standby is None:
+                continue
+            self._repl[i] = {
+                "standby": {
+                    "host": standby.server_info.host,
+                    "port": standby.server_info.port,
+                },
+                "peer": standby.peer_id,
+                "announced": [0] * self.batch_size,
+            }
+
+    def _standby_peers(self) -> set[str]:
+        """Peers holding (some of) this session's replicated pages: the
+        recovery route hint."""
+        return {st["peer"] for st in self._repl or [] if st is not None}
+
+    async def _maybe_replicate(self) -> None:
+        """Announce newly sealed pages to each span's server, which exports
+        them off the critical path and kv_puts them into the standby's
+        prefix pool. Fire-and-forget: no reply rides the stream (so the
+        step recv loop never desyncs), and a failed send leaves the pages
+        for the next interval."""
+        live = [st for st in self._repl if st is not None]
+        if not live:
+            self.repl_lag_pages = 0
+            return
+        kind, rows = self._history_rows()
+        if kind is None:
+            return
+        lag = 0
+        for s, st in zip(self._spans, self._repl):
+            if st is None:
+                continue
+            ps = s.span.server_info.page_size
+            sealed = [len(r) // ps for r in rows]
+            behind = max(
+                sl - a for sl, a in zip(sealed, st["announced"])
+            )
+            if behind < self.repl_every:
+                lag = max(lag, behind)
+                continue
+            chains = self._full_chains(ps)
+            if chains is None:
+                return
+            try:
+                await s.stream.send(
+                    {"kv_repl": {"standby": st["standby"], "chains": chains}},
+                    [],
+                )
+            except (RpcError, OSError, asyncio.TimeoutError) as e:
+                logger.debug("kv_repl announce failed: %s", e)
+                lag = max(lag, behind)
+                continue
+            st["announced"] = sealed
+        self.repl_lag_pages = lag
+
     # ------------------------------------------------------------------ steps
     async def step(
         self,
@@ -298,15 +535,45 @@ class InferenceSession:
         hidden = torch.as_tensor(hidden)
         attempt = 0
         overload_waits = 0
+        resume_step = None  # (step_id, skip): retransmit after a resume
         while True:
             try:
                 if prune is not None or accept_per_span is not None:
                     return await self._step_pruned(
                         hidden, tree_mask, depths, prune, accept_per_span
                     )
+                send_hidden, skip, step_id = hidden, None, None
+                if resume_step is not None:
+                    # retransmit the exact failed step: the same id
+                    # (servers that applied it answer from the recorded
+                    # reply) and the same prefix skip (the same suffix),
+                    # with no fresh probe
+                    step_id, skip = resume_step
+                    resume_step = None
+                    if skip:
+                        send_hidden = hidden[:, skip:]
+                elif (
+                    # shared-prefix fast path: on the session's FIRST
+                    # committed prefill, probe the chain's pools and ship
+                    # only the uncached suffix. The output covers only the
+                    # suffix; callers consume the last position, which the
+                    # probe's cap always keeps
+                    self.prefix_cache
+                    and commit
+                    and tree_mask is None
+                    and ids is not None
+                    and self.position == 0
+                    and hidden.shape[1] > 1
+                ):
+                    skip = await self._probe_prefix(
+                        [[int(t) for t in row]
+                         for row in torch.as_tensor(ids).tolist()]
+                    )
+                    if skip:
+                        send_hidden = hidden[:, skip:]
                 out = await self._step_once(
-                    hidden, commit, commit_lens, tree_mask, depths, accept,
-                    rows,
+                    send_hidden, commit, commit_lens, tree_mask, depths,
+                    accept, rows, prefix_skip=skip, step_id=step_id,
                 )
                 if commit and tree_mask is None:
                     if ids is not None and self.embed_fn is not None:
@@ -315,6 +582,7 @@ class InferenceSession:
                     else:
                         self._history.append(hidden)
                     self.position += hidden.shape[1]
+                    await self._maybe_replicate()
                 return out
             except OverloadedError as e:
                 # retriable shed: the peer told us to go elsewhere, not that
@@ -346,6 +614,28 @@ class InferenceSession:
                 attempt += 1
                 if attempt > self.max_retries:
                     raise
+                if (
+                    self.resume
+                    and self._last_sent is not None
+                    and prune is None
+                    and accept_per_span is None
+                    # resume would retransmit to the SAME peer whose
+                    # output an integrity check just rejected, and its
+                    # at-most-once dedup would replay the recorded reply:
+                    # integrity rejects take the reroute + replay path
+                    and not isinstance(e, IntegrityError)
+                ):
+                    # cheap path first: re-attach the lease-parked sessions
+                    # on fresh streams and retransmit the failed step under
+                    # its original id: no KV is rebuilt, no token replayed
+                    last = self._last_sent
+                    if await self._try_resume():
+                        resume_step = last
+                        logger.info(
+                            "step failed (%s); resumed session, "
+                            "retransmitting step %d", e, last[0],
+                        )
+                        continue
                 logger.warning(
                     "step failed (%s); re-routing (attempt %d)", e, attempt
                 )
@@ -496,13 +786,19 @@ class InferenceSession:
         return chunk.to(device=hidden.device, dtype=torch.float32), keep
 
     async def _step_once(self, hidden, commit, commit_lens=None,
-                         tree_mask=None, depths=None, accept=None, rows=None):
+                         tree_mask=None, depths=None, accept=None, rows=None,
+                         prefix_skip=None, step_id=None):
         if not self._spans:
             # a failed recovery left no open chain; surface as a retryable
             # wire error so the caller's retry loop attempts recovery again
             raise RpcError("session chain is closed (recovery pending)")
-        step_id = self._step_counter
-        self._step_counter += 1
+        if step_id is None:
+            step_id = self._step_counter
+            self._step_counter += 1
+        # remembered for reconnect-resume: a retransmit after a resumed
+        # stream reuses this exact id (the server's at-most-once dedup
+        # keys on it) and the same prefix_skip (the same suffix)
+        self._last_sent = (step_id, prefix_skip)
         meta_base = {
             "step": step_id,
             "commit": commit,
@@ -517,6 +813,11 @@ class InferenceSession:
             meta_base["accept"] = _accept_meta(accept)
         if commit_lens is not None:
             meta_base["commit_lens"] = [int(x) for x in commit_lens]
+        if prefix_skip is not None:
+            # settle the preceding probe: servers keep exactly this many
+            # adopted tokens per row (0 drops the adoption). Present on
+            # every mb chunk and relay forward via meta_base
+            meta_base["prefix_skip"] = int(prefix_skip)
         # ship hidden in the first span's advertised wire dtype (bf16 for
         # bf16-compute servers: half the bytes on the latency-critical hop)
         wire_dt = dtype_for_name(self._spans[0].span.server_info.wire_dtype)
@@ -726,6 +1027,65 @@ class InferenceSession:
         raise _unported("rewind_decoded_tail")
 
     # -------------------------------------------------------------- recovery
+    async def _try_resume(self) -> bool:
+        """Cheap half of recovery: reopen each span with `resume:
+        session_id` so the server re-attaches our lease-parked session to
+        the fresh stream, KV intact. All-or-nothing across spans: any
+        decline (lease expired, leases off, parked pages evicted) abandons
+        the attempt and the caller falls back to reroute + replay. On
+        success the caller retransmits the failed step under its ORIGINAL
+        id; spans that already applied it answer from their recorded
+        reply, the rest compute it."""
+        if not self.resume or not self._spans:
+            return False
+        old = self._spans
+        fresh: list[_SpanSession] = []
+        ok = True
+        reason = None
+        for s in old:
+            try:
+                conn = await connect(
+                    s.span.server_info.host, s.span.server_info.port,
+                    keepalive_s=self.keepalive_s,
+                )
+                stream = await conn.open_stream(
+                    "rpc_inference",
+                    {
+                        "resume": s.session_id,
+                        # session_id rides along so the wire trace stays
+                        # self-describing; servers key off "resume"
+                        "session_id": s.session_id,
+                        "client_id": self.client_id,
+                    },
+                )
+                fresh.append(_SpanSession(s.span, conn, stream, s.session_id))
+                item = await asyncio.wait_for(
+                    stream.recv(), self.resume_timeout
+                )
+                resp_meta = item[0] if item is not None else {}
+                if not resp_meta.get("resumed"):
+                    ok = False
+                    reason = resp_meta.get("reason", "stream closed")
+                    break
+            except (RpcError, OSError, asyncio.TimeoutError) as e:
+                ok = False
+                reason = str(e) or type(e).__name__
+                break
+        if not ok:
+            self.resume_declines += 1
+            logger.info("session resume declined (%s); falling back to "
+                        "full recovery", reason)
+            for sp in fresh:
+                await sp.close()
+            return False
+        # the dead streams' conns linger on our side too: abort them so
+        # nothing keeps pinging a connection we just superseded
+        for sp in old:
+            sp.conn.abort("superseded by resume")
+        self._spans = fresh
+        self.resumed_streams += len(fresh)
+        return True
+
     async def _recover(self) -> None:
         """Rebuild the entire chain and replay history (v1 of reference
         `_update_sequence`: servers key KV caches by session, and new
@@ -773,11 +1133,15 @@ class InferenceSession:
         raise last_exc
 
     async def _recover_once(self) -> None:
-        """One rebuild + replay attempt (see _recover)."""
+        """One rebuild + replay attempt (see _recover). The route prefers
+        the peers holding this session's replicated pages, so the probe
+        below usually adopts them and the replay shrinks to the unsealed
+        tail."""
         await self.manager.update(force=True)
         route = self.manager.make_sequence(
             cache_tokens_needed=self.batch_size * self.max_length,
             relay=not self.use_push,
+            prefer=self._standby_peers() or None,
         )
         spans: list[_SpanSession] = []
         try:
@@ -807,18 +1171,45 @@ class InferenceSession:
                                      dtype=torch.int64)
                 for i, r in enumerate(self._id_rows):
                     padded[i, : len(r)] = torch.tensor(r, dtype=torch.int64)
+                # pools (this session's earlier prompt pages, a standby's
+                # replicated pages) may hold a prefix: probe, so the replay
+                # re-ships only the uncached suffix. Chains come from the
+                # RAGGED rows, never the padded rectangle; commit_lens are
+                # absolute, so the adopted offset needs no adjustment
+                skip = 0
+                if self.prefix_cache:
+                    skip = await self._probe_prefix(
+                        [list(r) for r in self._id_rows]
+                    )
+                replay = self.embed_fn(padded)
                 await self._step_once(
-                    self.embed_fn(padded), commit=False, commit_lens=lens,
+                    replay[:, skip:], commit=False, commit_lens=lens,
+                    prefix_skip=skip,
                 )
-                self.failover_replayed_tokens += sum(lens)
+                self.failover_replayed_tokens += sum(
+                    max(0, ln - skip) for ln in lens
+                )
             elif self._history:
                 replay = torch.cat(self._history, dim=1)
-                await self._step_once(replay, commit=True)
-                self.failover_replayed_tokens += (
-                    replay.shape[0] * replay.shape[1]
+                skip = 0
+                if self.prefix_cache:
+                    skip = await self._probe_prefix(
+                        hidden_rows=[
+                            replay[i] for i in range(replay.shape[0])
+                        ]
+                    )
+                await self._step_once(
+                    replay[:, skip:], commit=True,
+                    prefix_skip=skip if skip else None,
+                )
+                self.failover_replayed_tokens += replay.shape[0] * (
+                    replay.shape[1] - skip
                 )
         except Exception:
             # a half-replayed chain must not be reused: its KV caches are
             # incomplete and a later "successful" step would be garbage
             await self.close()
             raise
+        # replicate to a fresh standby from now on (the old one is likely
+        # on the new route, often as the new primary)
+        self._init_repl()

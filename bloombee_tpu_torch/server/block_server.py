@@ -36,19 +36,35 @@ and JAX servers work with it:
   span's output with the MidLMHead (`spec/pruner.py`, the "simple"
   method, head from `model_dir` or BBTPU_PRUNER_CKPT) and replies only
   the surviving rows with their `keep` indices.
+- the shared-prefix cache (`prefix_cache`, else BBTPU_PREFIX_CACHE): a
+  `prefix_probe` step adopts each row's longest pooled prompt prefix, and
+  the next step's `prefix_skip` settles it (solo: an unsettled adoption
+  never joins a merged dispatch), so the prefill computes only the suffix;
+  the server advertises its `page_size` for the clients' hash chains;
+- standby KV replication: a `kv_repl` stream item names a same-span
+  standby and the session's full-history hash chains; the server exports
+  the newly sealed pages off the critical path and ships them with the
+  `kv_put` unary call, which a standby installs as cached pool entries
+  (`kv_repl` advertised on a bf16/f32 arena with the prefix cache on);
+- session leases (`session_lease_s`, else BBTPU_SESSION_LEASE_S; 0 = off):
+  a session whose stream dies parks its pages in the pool and stays
+  resumable (`resume: session_id` on a fresh stream) for one lease; with
+  leases on, every step's reply is recorded before delivery, so a step
+  retransmitted after a resume is answered, not applied twice;
+- `drain()`: announce DRAINING, refuse opens and `kv_put`, flush the
+  replication backlog, expire parked leases, wait for live sessions, stop.
 - `rpc_push`: a step pushed by an upstream server (buffered briefly when it
   races ahead of its session's open). A step whose meta names a `route`
   pushes its output on to the next hop and acks its own stream.
-- `rpc_info`: the server's counters (the JAX server's batching keys under
-  its names) and its ServerInfo.
+- `rpc_info`: the server's counters (the JAX server's batching, prefix,
+  replication and lease keys under its names) and its ServerInfo.
 - A background announcer re-declares the span in the registry every
   `announce_period`, with expiration as the liveness signal.
 
 What this server does not serve yet is refused loudly, never ignored: a step
-whose meta asks for chained decode_n (`chain`, `decode_n`), KV replication
-or the prefix cache (`kv_repl`, `prefix_probe`) fails its session with an
-error frame naming the key; so does an open asking for a LoRA adapter or a
-session resume, and the server refuses to start with the neural pruner or
+whose meta asks for chained decode_n (`chain`, `decode_n`) fails its
+session with an error frame naming the key; so does an open asking for a
+LoRA adapter, and the server refuses to start with the neural pruner or
 pruner training (`BBTPU_PRUNER_METHOD=neural`, `BBTPU_PRUNER_TRAIN`: both
 learn by gradient, ROADMAP item 17). The server advertises those features
 as off.
@@ -81,6 +97,7 @@ from bloombee_tpu_torch.runtime.executor import (
 )
 from bloombee_tpu_torch.server.compute_queue import (
     PRIORITY_INFERENCE,
+    PRIORITY_TRAINING,
     ComputeQueue,
     DeadlineExpired,
     aged_chunk_priority,
@@ -92,6 +109,8 @@ from bloombee_tpu_torch.utils.device import resolve_device
 from bloombee_tpu_torch.wire.flow import FlowLimiter
 from bloombee_tpu_torch.wire.rpc import (
     Connection,
+    ConnectionClosed,
+    RpcError,
     RpcServer,
     Stream,
     connect,
@@ -121,6 +140,16 @@ env.declare(
 )
 
 env.declare(
+    "BBTPU_SESSION_LEASE_S", float, 0.0,
+    "session lease: a session whose client stream died (or went silent past "
+    "this long) is PARKED — its KV pages are handed to the prefix pool as "
+    "evictable refcount-0 cached entries, so a wedged or partitioned client "
+    "can never pin memory — and stays resumable (resume: session_id on a "
+    "fresh stream) for one more lease period before final reclaim. 0 "
+    "disables leases: a dead stream frees the session immediately. Pair "
+    "with BBTPU_KEEPALIVE_S so half-open streams are detected promptly",
+)
+env.declare(
     "BBTPU_SPEC_BATCH", bool, False,
     "batched tree-speculative verification: let concurrent sessions' "
     "tree-verify steps that share (layers, dtype) pad/stack into ONE "
@@ -147,13 +176,16 @@ env.declare(
     "when present, else the head is the checkpoint's own norm + lm_head",
 )
 
+# concurrent standby-replication sweeps a server runs (each holds one
+# export and one kv_put at a time): the JAX server's BBTPU_REPL_INFLIGHT
+# default
+REPL_INFLIGHT = 2
+
 # step-meta keys this server refuses, with what they ask for; a key asks
 # only when its value is truthy
 REFUSED_STEP_KEYS = {
     "chain": "chained decode_n",
     "decode_n": "server-side decode_n",
-    "kv_repl": "session-KV replication",
-    "prefix_probe": "the shared-prefix cache",
 }
 
 
@@ -185,6 +217,36 @@ class _Session:
         # wait for it. (The JAX session's `last_tree` feeds the online
         # head trainer, which the port refuses: ROADMAP item 17.)
         self.speculating = True
+        # session-KV replication to a standby (client-directed kv_repl
+        # items): standby (host, port), the client's full-history hash
+        # chains per row, pages already shipped per row, and a lock so
+        # only one sweep drains the backlog at a time
+        self.repl_standby: tuple[str, int] | None = None
+        self.repl_chains: list[list[str]] | None = None
+        self.repl_sent: list[int] | None = None
+        self.repl_lock = lockwatch.async_lock("server.repl")
+        # session lease / reconnect-resume. The stream-opening handler OWNS
+        # the KV pages (allocate context) and survives stream death: it
+        # parks, then waits on resume_waiter for either a resume handler
+        # (which hands over its fresh stream) or the lease reaper
+        self.parked = False
+        self.reaped = False  # lease expired / resume impossible
+        self.lease_deadline = 0.0  # monotonic; meaningful while parked
+        self.cur_stream = None  # the stream the session loop serves now
+        self.resume_waiter: asyncio.Event | None = None
+        self.resume_stream = None  # set by the resume handler before wake
+        # releases the resume handler whose stream the loop now serves
+        self.detach_event: asyncio.Event | None = None
+        self.stream_epoch = 0  # bumped per adopted stream
+        # at-most-once step application: replies are recorded (keyed
+        # (step, mb)) BEFORE first delivery, so a step retried after a
+        # lost reply resends the recorded reply instead of re-applying KV
+        self.last_step_id = -1
+        self.applied_steps: dict[tuple[int, int], tuple[dict, list]] = {}
+        # a prefix-cache adoption is SETTLED once a step has trimmed it to
+        # the client's declared skip; until then the session steps solo
+        # (the settle mutates the table), after it batches like any other
+        self.adoption_settled = False
 
 
 class SessionKVLost(RuntimeError):
@@ -207,15 +269,16 @@ class _BatchMember:
 class _ChunkMember:
     """One prefill chunk inside a MIXED dispatch (`mixed_batch`): the
     multi-token member that rides a ragged span step alongside other
-    sessions' single-token decodes. `last` carries the chunk stream's
-    duty (the last chunk commits the prompt) into whichever dispatch runs
-    it. (The JAX member's `first`, which settles a prefix-cache adoption,
-    belongs to ROADMAP item 12.)"""
+    sessions' single-token decodes. `first`/`last` carry the chunk
+    stream's duties (the first chunk settles a prefix-cache adoption, the
+    last commits the prompt) into whichever dispatch runs it."""
 
     session: _Session
     handle: object
     hidden: torch.Tensor  # [b, t, D] in the wire dtype
     last: bool
+    first: bool = False
+    prefix_skip: object = None
 
 
 @dataclasses.dataclass
@@ -322,6 +385,13 @@ class BlockServer:
         spec_batch: bool | None = None,  # batched tree verification:
         # concurrent sessions' tree-verify steps share one ragged dispatch
         # (None -> BBTPU_SPEC_BATCH; off = solo tree dispatches)
+        prefix_cache: bool | None = None,  # cross-session shared-prefix KV
+        # cache: pool committed prompt pages under content hashes, adopt
+        # them for sessions whose prompt matches (None ->
+        # BBTPU_PREFIX_CACHE)
+        session_lease_s: float | None = None,  # park a stream-dead
+        # session's KV for this long, resumable by a reconnecting client
+        # (None -> BBTPU_SESSION_LEASE_S; 0 = off)
         device="cuda",
     ):
         if env.get("BBTPU_PRUNER_METHOD") == "neural":
@@ -362,7 +432,7 @@ class BlockServer:
         self.manager = CacheManager(
             end - start, num_pages, page_size, spec.num_key_value_heads,
             spec.head_dim, dtype=compute_dtype, device=self.device,
-            quant=kv_quant,
+            quant=kv_quant, prefix_cache=prefix_cache,
         )
         self.executor = SpanExecutor(
             params, spec, self.manager, max_chunk_tokens=max_chunk_tokens,
@@ -429,6 +499,25 @@ class BlockServer:
         # counters (rpc_info)
         self.deadlines_expired = 0
         self.pushes_dropped = 0
+        # session-KV replication (fast failover): sealed pages this primary
+        # shipped to standbys, and tokens recovering clients replayed into
+        # us; the semaphore bounds concurrent replication sweeps so standby
+        # traffic can never crowd out live inference
+        self.repl_pages_sent = 0
+        self.failover_replayed_tokens = 0
+        self._repl_sem = asyncio.Semaphore(REPL_INFLIGHT)
+        # session leases + reconnect-resume: parked sessions reclaimed by
+        # the reaper, parked sessions re-attached by a reconnecting client,
+        # retried steps answered from the recorded reply
+        self.session_lease_s = (
+            float(env.get("BBTPU_SESSION_LEASE_S"))
+            if session_lease_s is None else float(session_lease_s)
+        )
+        self.sessions_reaped = 0
+        self.sessions_resumed = 0
+        self.steps_deduped = 0
+        self._reaper_task: asyncio.Task | None = None
+        self._draining = False
         # continuous batching: member steps that shared a merged dispatch,
         # merged dispatches issued, and batcher-routed steps that ran alone
         # (width-1 pops, row-by-row replays after a failed merged dispatch)
@@ -464,7 +553,10 @@ class BlockServer:
         self.tree_group_members = 0
         self._closed_session_spec: OrderedDict[str, dict] = OrderedDict()
         self.rpc = RpcServer(
-            unary_handlers={"rpc_info": self._rpc_info},
+            unary_handlers={
+                "rpc_info": self._rpc_info,
+                "kv_put": self._kv_put,
+            },
             stream_handlers={"rpc_inference": self._rpc_inference},
             push_handlers={"rpc_push": self._rpc_push},
             host=host,
@@ -480,6 +572,8 @@ class BlockServer:
     async def start(self) -> None:
         await self.rpc.start()
         self.compute.start()
+        if self.session_lease_s > 0:
+            self._reaper_task = asyncio.create_task(self._lease_reaper_loop())
         if self.registry is not None:
             await self._announce(ServerState.ONLINE)
             self._announce_task = asyncio.create_task(self._announce_loop())
@@ -488,7 +582,68 @@ class BlockServer:
             self.model_uid, self.start_block, self.end_block, self.port,
         )
 
+    async def drain(self, timeout: float = 60.0) -> None:
+        """Graceful shutdown: announce DRAINING so routing stops starting
+        new sessions here, refuse opens and kv_put, flush the standby
+        replication backlog (a drained server's sessions then fail over
+        with at most the unsealed tail to replay), force-expire parked
+        leases (a wedged client never holds the drain), wait for the live
+        sessions until `timeout` seconds have passed, then stop."""
+        if self._draining:
+            return
+        self._draining = True
+        deadline = clock.monotonic() + float(timeout)
+        logger.info(
+            "draining %s: %d in-flight session(s), up to %.0fs",
+            self.server_id, len(self._sessions),
+            deadline - clock.monotonic(),
+        )
+        if self.registry is not None:
+            try:
+                await self._announce(ServerState.DRAINING)
+            except Exception as e:
+                logger.warning("DRAINING announce failed: %s", e)
+        flush = [
+            asyncio.create_task(self._replicate_session(s))
+            for s in list(self._sessions.values())
+            if s.repl_standby is not None
+        ]
+        if flush:
+            try:
+                await asyncio.wait_for(
+                    asyncio.gather(*flush, return_exceptions=True),
+                    timeout=max(1.0, deadline - clock.monotonic()),
+                )
+            except asyncio.TimeoutError:
+                logger.warning(
+                    "replication flush outlived the drain window; standbys "
+                    "hold a partial backlog"
+                )
+        reaped = 0
+        for s in list(self._sessions.values()):
+            if s.parked and not s.reaped:
+                s.reaped = True
+                if s.resume_waiter is not None:
+                    s.resume_waiter.set()
+                reaped += 1
+        if reaped:
+            logger.info(
+                "drain force-expired %d parked session lease(s)", reaped
+            )
+        while self._sessions and clock.monotonic() < deadline:
+            # sessions parking DURING the drain are refused (the park path
+            # checks _draining), so only live streams remain to wait on
+            await clock.async_sleep(0.1)
+        if self._sessions:
+            logger.warning(
+                "%d session(s) outlived the drain; they will replay "
+                "elsewhere", len(self._sessions),
+            )
+        await self.stop()
+
     async def stop(self) -> None:
+        if self._reaper_task is not None:
+            self._reaper_task.cancel()
         if self._announce_task is not None:
             self._announce_task.cancel()
         if self.registry is not None:
@@ -509,7 +664,9 @@ class BlockServer:
 
     def server_info(self) -> ServerInfo:
         return ServerInfo(
-            state=ServerState.ONLINE,
+            state=(
+                ServerState.DRAINING if self._draining else ServerState.ONLINE
+            ),
             host=self.public_host,
             port=self.port,
             throughput=self.throughput,
@@ -519,11 +676,17 @@ class BlockServer:
             end_block=self.end_block,
             wire_dtype=self.wire_dtype,
             next_pings=self.next_pings.to_wire() or None,
+            # clients need the page geometry to build prefix hash chains
+            # (0 advertises "no prefix cache here")
+            page_size=(
+                self.manager.page_size if self.manager.prefix_cache else 0
+            ),
+            # clients only pick standbys that can install kv_put pages; a
+            # draining server must not attract fresh replication traffic
+            kv_repl=self.manager.repl_supported and not self._draining,
             # features this server does not serve, advertised off
             adapters=None,
             decode_n_max=0,
-            page_size=0,
-            kv_repl=False,
             out_digest=False,
             artifacts=False,
         )
@@ -610,22 +773,23 @@ class BlockServer:
         return report
 
     async def _rpc_info(self, meta: dict, tensors):
-        now = clock.monotonic()
-        ages = [now - s.opened_at for s in self._sessions.values()]
-        idles = [now - s.last_step_at for s in self._sessions.values()]
         info = {
             "server_id": self.server_id,
             "server_time": clock.now(),  # NTP-style clock sync anchor
             "transport": transport_stats(),
             "wire_pipeline": self.rpc.pipeline_stats(),
             "deadlines_expired": self.deadlines_expired,
-            "draining": False,
+            "draining": self._draining,
             "standby": False,
+            # session lifecycle (leases, keepalives, resume)
+            "sessions_reaped": self.sessions_reaped,
+            "sessions_resumed": self.sessions_resumed,
+            "steps_deduped": self.steps_deduped,
             "keepalives_sent": self.rpc.keepalives_sent,
             "pushes_dropped": self.pushes_dropped,
+            "session_lease_s": self.session_lease_s,
             "active_sessions": len(self._sessions),
-            "session_oldest_s": round(max(ages), 3) if ages else 0.0,
-            "session_oldest_idle_s": round(max(idles), 3) if idles else 0.0,
+            **self._session_ages(),
             # continuous batching, chunked prefill and mixed batch, under
             # the JAX server's names
             "batched_steps": self.batched_steps,
@@ -679,6 +843,15 @@ class BlockServer:
             "dispatches_per_token": (
                 self.step_dispatches / max(self.step_tokens, 1)
             ),
+            # prefix cache: sessions that adopted pooled prompt pages,
+            # tokens they skipped prefilling, copy-on-write page splits,
+            # cached-pool occupancy and kv_put pages installed here
+            **self.manager.prefix_stats(),
+            # replication: sealed pages shipped to standbys, the sealed-
+            # but-unshipped backlog, tokens recovering clients replayed
+            "repl_pages_sent": self.repl_pages_sent,
+            "repl_lag_pages": self._repl_lag(),
+            "failover_replayed_tokens": self.failover_replayed_tokens,
             **lockwatch.counters(),
             "decode_n": False,
             "decode_n_fused": False,
@@ -689,16 +862,182 @@ class BlockServer:
         }
         return info, []
 
+    # -------------------------------------------- session-KV replication
+    async def _kv_put(self, meta: dict, tensors):
+        """Standby side of session-KV replication: install hash-addressed
+        sealed pages from a primary into the prefix pool as refcount-0
+        cached entries. Cached pages are evictable, so replication can
+        never run a healthy standby out of pages. Declines (installed=0 +
+        reason) instead of erroring, so mixed swarms degrade to full
+        replay."""
+        decline = None
+        if self._draining:
+            decline = "draining"
+        elif not self.manager.repl_supported:
+            decline = (
+                "kv replication unsupported (prefix cache off or quantized "
+                "arena)"
+            )
+        elif int(meta.get("page_size", 0)) != self.manager.page_size:
+            decline = "page_size mismatch"
+        elif (
+            int(meta.get("start", -1)) != self.start_block
+            or int(meta.get("end", -1)) != self.end_block
+        ):
+            decline = "span mismatch"
+        if decline is not None:
+            return {"installed": 0, "reason": decline}, []
+        hashes = [str(h) for h in (meta.get("hashes") or [])]
+        if not hashes or len(tensors) != 2:
+            return {"installed": 0, "reason": "empty or malformed payload"}, []
+        try:
+            installed = await self.compute.submit(
+                PRIORITY_TRAINING, self.manager.install_replicated, hashes,
+                tensors[0], tensors[1],
+            )
+        except ValueError as e:
+            return {"installed": 0, "reason": str(e)}, []
+        return {"installed": int(installed)}, []
+
+    def _note_kv_repl(self, session: _Session, repl: dict) -> None:
+        """Primary side: a client's kv_repl stream item names the standby
+        and carries each row's full-history page-hash chain. Publish our
+        own freshly sealed decode pages into the local pool under those
+        hashes, then sweep the backlog to the standby in the background."""
+        standby = repl.get("standby") or {}
+        chains = [list(c) for c in (repl.get("chains") or [])]
+        if not standby.get("host") or not chains:
+            return
+        if (
+            session.repl_sent is None
+            or len(session.repl_sent) != len(chains)
+        ):
+            session.repl_sent = [0] * len(chains)
+        session.repl_standby = (str(standby["host"]), int(standby["port"]))
+        session.repl_chains = chains
+        self.manager.extend_seq_hashes(session.handle, chains)
+        task = asyncio.create_task(self._replicate_session(session))
+        # step_tasks membership matters: the session loop gathers these
+        # before the allocate context frees the pages a sweep is exporting
+        session.step_tasks.add(task)
+        task.add_done_callback(session.step_tasks.discard)
+
+    async def _replicate_session(self, session: _Session) -> None:
+        """Drain the session's replication backlog. Serialized per session
+        (repl_sent is the only progress state); re-sweeps until no pages
+        ship, since the chains may grow while a sweep is in flight."""
+        if session.repl_lock.locked():
+            return  # an earlier trigger is still draining the backlog
+        async with session.repl_lock:
+            while await self._replicate_pass(session):
+                pass
+
+    async def _replicate_pass(self, session: _Session) -> bool:
+        """One sweep over the session's rows; True when any pages shipped
+        (the caller sweeps again). Failures leave repl_sent untouched so
+        the next kv_repl trigger retries; a standby DECLINE stops
+        replication for this session (the client re-picks a standby on
+        recovery)."""
+        standby = session.repl_standby
+        chains = session.repl_chains
+        sent_by_row = session.repl_sent
+        if standby is None or not chains or sent_by_row is None:
+            return False
+        ps = self.manager.page_size
+        seq_ids = session.handle.seq_ids
+        progress = False
+        for row, chain in enumerate(chains):
+            if row >= len(seq_ids) or row >= len(sent_by_row):
+                break
+            sent = sent_by_row[row]
+            if sent >= len(chain):
+                continue
+            async with self._repl_sem:
+                try:
+                    res = await self.compute.submit(
+                        PRIORITY_TRAINING, self.manager.export_pages,
+                        seq_ids[row], sent, len(chain),
+                    )
+                except Exception as e:
+                    logger.debug("kv replication export failed: %s", e)
+                    return False
+                if res is None:
+                    continue  # row parked/adopted/unsupported: skip
+                k_dev, v_dev, hi = res
+                n = int(hi) - sent
+
+                def _export(dev, n=n):
+                    # device [L, n*ps, kv, hd] -> host [n, L, ps, kv, hd]
+                    # (one leading page axis: the standby installs per
+                    # hash); the copy runs off the event loop
+                    a = dev.cpu()
+                    return a.reshape(
+                        a.shape[0], n, ps, *a.shape[2:]
+                    ).transpose(0, 1).contiguous()
+
+                k = await asyncio.to_thread(_export, k_dev)
+                v = await asyncio.to_thread(_export, v_dev)
+                try:
+                    conn = await self.peers.get(*standby)
+                    reply, _ = await conn.call(
+                        "kv_put",
+                        {
+                            "page_size": ps,
+                            "start": self.start_block,
+                            "end": self.end_block,
+                            "hashes": list(chain[sent:int(hi)]),
+                        },
+                        [k, v],
+                        timeout=30.0,
+                    )
+                except Exception as e:
+                    logger.debug("kv replication push failed: %s", e)
+                    return False
+                installed = (
+                    int(reply.get("installed", 0))
+                    if isinstance(reply, dict) else 0
+                )
+                if installed <= 0:
+                    logger.info(
+                        "standby %s:%d declined kv_put (%s); stopping "
+                        "replication for session %s", standby[0], standby[1],
+                        (reply or {}).get("reason", "?"), session.id,
+                    )
+                    session.repl_standby = None
+                    return False
+                sent_by_row[row] = int(hi)
+                self.repl_pages_sent += n
+                progress = True
+        return progress
+
+    def _repl_lag(self) -> int:
+        """Gauge: sealed-but-unshipped pages across replicating sessions
+        (bounds how much a failover replays beyond the unsealed tail)."""
+        lag = 0
+        for s in self._sessions.values():
+            if not s.repl_chains or s.repl_sent is None:
+                continue
+            for row, chain in enumerate(s.repl_chains):
+                if row < len(s.repl_sent):
+                    lag += max(0, len(chain) - s.repl_sent[row])
+        return lag
+
     async def _rpc_inference(self, stream: Stream) -> None:
         """One decode session. Open meta: {session_id, batch_size, max_length,
-        start?, end?}; items: {step, commit, reply, route, ...} + [hidden
-        (B, T, D)]."""
+        start?, end?} or {resume: session_id}; items: {step, commit, reply,
+        route, ...} + [hidden (B, T, D)]."""
         meta = stream.open_meta
+        if self._draining:
+            # routing should already avoid us (DRAINING announce), but a
+            # client racing a stale swarm view can still arrive: refuse
+            # before allocating KV it could never finish using
+            raise RuntimeError("server is draining; open a session elsewhere")
         if meta.get("resume") is not None:
-            raise ValueError(
-                "open meta 'resume': session resume is not served here "
-                "(no session leases); open a new session"
-            )
+            # reconnect-resume: re-attach a parked session instead of
+            # allocating anything; this handler only hands its fresh
+            # stream to the surviving page-owning handler
+            await self._rpc_resume(stream, str(meta["resume"]))
+            return
         if meta.get("adapter"):
             raise ValueError(
                 f"open meta 'adapter' ({meta['adapter']!r}): per-request "
@@ -716,8 +1055,24 @@ class BlockServer:
             session.last_step_at = session.opened_at
             self._sessions[session_id] = session
             self._drain_pending_pushes(session)
+            cur_stream = stream
             try:
-                await self._session_loop(session, stream)
+                while True:
+                    session.cur_stream = cur_stream
+                    try:
+                        await self._session_loop(session, cur_stream)
+                        break  # client half-closed: done
+                    except (ConnectionClosed, OSError, RpcError) as e:
+                        # the stream died under the session. With leases
+                        # on, park and wait for a reconnect instead of
+                        # freeing
+                        if self.session_lease_s <= 0 or self._draining:
+                            raise
+                        cur_stream = await self._park_until_resumed(
+                            session, e
+                        )
+                        if cur_stream is None:
+                            break  # lease expired; pages reclaimed below
             finally:
                 self._sessions.pop(session_id, None)
                 if session.spec_drafted:
@@ -726,6 +1081,18 @@ class BlockServer:
                     )
                     while len(self._closed_session_spec) > 64:
                         self._closed_session_spec.popitem(last=False)
+                session.parked = False
+                # release the resume handler carrying the current stream
+                if session.detach_event is not None:
+                    session.detach_event.set()
+                    session.detach_event = None
+                if cur_stream is not None and cur_stream is not stream:
+                    # the session ended on a RESUMED stream whose client is
+                    # live and reading: half-close so it sees end-of-stream
+                    try:
+                        await cur_stream.close()
+                    except Exception:
+                        pass
                 if session.n_steps:
                     wall = clock.monotonic() - session.opened_at
                     logger.info(
@@ -737,6 +1104,199 @@ class BlockServer:
                         session.sum_fetch_ms / session.n_steps,
                         wall, session.n_steps / max(wall, 1e-9),
                     )
+
+    # ------------------------------------------- session leases & resume
+    async def _park_until_resumed(
+        self, session: _Session, cause: Exception
+    ) -> Stream | None:
+        """The session's stream died but its lease keeps it alive: drain
+        in-flight work, hand the KV pages to the prefix pool as evictable
+        cached entries (under pressure they are evicted and the resume
+        degrades to full replay), then sleep until a resume handler
+        delivers a fresh stream or the reaper expires the lease. Returns
+        the new stream, or None once the session is reclaimed."""
+        # fence the dead stream: nothing may still be writing KV when the
+        # pages change owner
+        if session.step_tasks:
+            await asyncio.gather(*session.step_tasks, return_exceptions=True)
+        if session.detach_event is not None:
+            # the stream that just died was itself a resumed one: let its
+            # carrier handler go
+            session.detach_event.set()
+            session.detach_event = None
+        session.cur_stream = None
+        session.resume_stream = None
+        session.resume_waiter = asyncio.Event()
+        session.lease_deadline = clock.monotonic() + self.session_lease_s
+        session.parked = True
+        await self.manager.lease_park(session.handle)
+        ledger.recovery("server.lease_park")
+        logger.info(
+            "session %s parked after stream death (%s: %s); resumable for "
+            "%.1fs", session.id, type(cause).__name__, cause,
+            self.session_lease_s,
+        )
+        await session.resume_waiter.wait()
+        session.parked = False
+        if session.reaped or session.resume_stream is None:
+            self.manager.lease_reclaim(session.handle)
+            self.sessions_reaped += 1
+            ledger.recovery("server.lease_reap")
+            logger.info(
+                "session %s lease expired while parked; KV reclaimed",
+                session.id,
+            )
+            return None
+        stream = session.resume_stream
+        session.resume_stream = None
+        session.lease_deadline = 0.0
+        return stream
+
+    async def _rpc_resume(self, stream: Stream, session_id: str) -> None:
+        """Resume half of reconnect-resume: re-attach a parked session to
+        this fresh stream. On success the PARKED handler (which owns the
+        pages) serves the stream; this handler holds the stream's RPC frame
+        open until the session lets go of it. Declines (resumed: False)
+        instead of erroring, so the client falls back to the standby /
+        full-replay path."""
+        session = self._sessions.get(session_id)
+        reason = None
+        if session is None:
+            reason = "unknown session (lease expired or never parked here)"
+        elif not session.parked:
+            # the old stream looks alive from here (half-open not yet
+            # detected): the client knows better, so fence it and wait
+            # briefly for the owner to park
+            old = session.cur_stream
+            if old is not None and old.conn is not stream.conn:
+                old.conn.abort("superseded by session resume")
+            for _ in range(100):
+                if session.parked or session_id not in self._sessions:
+                    break
+                await clock.async_sleep(0.05)
+            if not session.parked:
+                reason = "session is still attached to a live stream"
+        if reason is None and (
+            session.reaped or clock.monotonic() >= session.lease_deadline
+        ):
+            reason = "session lease expired"
+        if reason is None and not await self.manager.lease_resume(
+            session.handle
+        ):
+            # parked pages were evicted under pressure: the copy is gone,
+            # so expire the lease and let the parked handler reclaim now
+            reason = "parked KV no longer intact; replay"
+            session.reaped = True
+            session.resume_waiter.set()
+        if reason is not None:
+            logger.info(
+                "refusing resume of session %s: %s", session_id, reason
+            )
+            await stream.send({"resumed": False, "reason": reason})
+            return
+        session.stream_epoch += 1
+        detach = asyncio.Event()
+        session.detach_event = detach
+        session.resume_stream = stream
+        self.sessions_resumed += 1
+        logger.info(
+            "session %s resumed on a fresh stream (epoch %d, last applied "
+            "step %d)", session_id, session.stream_epoch,
+            session.last_step_id,
+        )
+        # the ack carries the last APPLIED step id so the client knows its
+        # unacked tail (a retransmit of an applied step dedups anyway)
+        await stream.send(
+            {
+                "resumed": True,
+                "last_step": session.last_step_id,
+                "epoch": session.stream_epoch,
+            }
+        )
+        session.resume_waiter.set()
+        await detach.wait()
+
+    async def _lease_reaper_loop(self) -> None:
+        """Expire parked sessions whose lease ran out, and fence live
+        sessions whose client has been silent past the lease: a fenced
+        stream fails into the ordinary park path, so even this late
+        detection hands the pages to the pool rather than freeing them
+        under a client that might still return."""
+        interval = max(0.05, self.session_lease_s / 4)
+        while True:
+            await clock.async_sleep(interval)
+            now = clock.monotonic()
+            for session in list(self._sessions.values()):
+                if session.parked:
+                    if now >= session.lease_deadline and not session.reaped:
+                        session.reaped = True
+                        if session.resume_waiter is not None:
+                            session.resume_waiter.set()
+                    continue
+                stream = session.cur_stream
+                conn = stream.conn if stream is not None else None
+                # the lease renews on any applied step AND any inbound
+                # frame (keepalive pongs included)
+                renewed = max(
+                    session.last_step_at,
+                    conn.last_recv if conn is not None else 0.0,
+                )
+                if conn is not None and now - renewed >= self.session_lease_s:
+                    logger.warning(
+                        "session %s silent for %.1fs (lease %.1fs): "
+                        "fencing its stream", session.id, now - renewed,
+                        self.session_lease_s,
+                    )
+                    conn.abort("session lease expired (silent client)")
+
+    def _session_ages(self) -> dict:
+        """rpc_info gauges: how old and how idle the live sessions are,
+        and how many sit parked awaiting a resume."""
+        now = clock.monotonic()
+        ages = [now - s.opened_at for s in self._sessions.values()]
+        idles = [now - s.last_step_at for s in self._sessions.values()]
+        return {
+            "sessions_parked": sum(
+                1 for s in self._sessions.values() if s.parked
+            ),
+            "session_oldest_s": round(max(ages), 3) if ages else 0.0,
+            "session_oldest_idle_s": round(max(idles), 3) if idles else 0.0,
+        }
+
+    def _dedup_step(self, session: _Session, meta: dict):
+        """At-most-once: a step already applied (recorded reply) must not
+        re-apply KV when the client retries it after a lost reply. Returns
+        the recorded (resp_meta, tensors) to resend, or None for fresh
+        work. Only with leases on: without resume there are no
+        retransmits."""
+        step = meta.get("step")
+        if self.session_lease_s <= 0 or step is None:
+            return None
+        step = int(step)
+        if step < session.last_step_id:
+            # a long-superseded retransmit: the client has already acted
+            # on newer steps, so ack it
+            return {"step": step, "ack": True, "deduped": True}, []
+        return session.applied_steps.get((step, int(meta.get("mb") or 0)))
+
+    def _record_reply(
+        self, session: _Session, meta: dict, resp: dict, tensors: list
+    ) -> None:
+        """Record a step's reply BEFORE first delivery (its KV mutation is
+        applied by now): if the reply is lost to a dying stream, the
+        client's post-resume retransmit gets this exact reply back instead
+        of a second application. Only the latest step's replies are kept:
+        the client never retries older ones."""
+        step = meta.get("step")
+        if self.session_lease_s <= 0 or step is None:
+            return
+        step = int(step)
+        if step > session.last_step_id:
+            session.last_step_id = step
+            session.applied_steps.clear()
+        session.applied_steps[(step, int(meta.get("mb") or 0))] = (
+            resp, tensors,
+        )
 
     def _resolve_layers(self, meta: dict) -> tuple[int, int] | None:
         """Honor a requested sub-span (the router may enter this server's span
@@ -778,7 +1338,12 @@ class BlockServer:
         finally:
             stream_next.cancel()
             if push_next.done() and not push_next.cancelled():
-                # a pushed item won the race at teardown: count it
+                # a pushed item won the race at teardown: requeue it so a
+                # parked session's resume still sees it, and count it
+                try:
+                    session.push_inbox.put_nowait(push_next.result())
+                except Exception:
+                    pass
                 self.pushes_dropped += 1
             else:
                 push_next.cancel()
@@ -833,12 +1398,43 @@ class BlockServer:
                 raise ValueError(
                     f"step meta {key!r}: {what} is not served by this server"
                 )
+        repl = meta.get("kv_repl")
+        if repl is not None:
+            # session-KV replication control: record the standby and the
+            # client's full-history hash chains, publish our own sealed
+            # decode pages locally under those hashes, and ship the
+            # backlog. Fire-and-forget: NO reply (one would desync the
+            # client's strictly ordered step stream)
+            self._note_kv_repl(session, repl)
+            return
+        cached = self._dedup_step(session, meta)
+        if cached is not None:
+            # at-most-once: this step was applied and its reply recorded
+            # before the stream died; resend the identical reply instead
+            # of mutating KV a second time
+            self.steps_deduped += 1
+            ledger.recovery("server.resume_dedup")
+            resp, out_t = cached
+            await stream.send({**resp, "deduped": True}, out_t)
+            return
         # "deadline_s" is the RELATIVE time the client has left; a local
         # monotonic cutoff from arrival
         budget = meta.get("deadline_s")
         deadline = None if budget is None else clock.monotonic() + budget
         if deadline is not None and clock.monotonic() > deadline:
             self._note_deadline_expired(meta, "on arrival")
+            return
+        probe = meta.get("prefix_probe")
+        if probe is not None:
+            # prefix-cache probe: adopt each row's longest pooled prompt
+            # prefix NOW (refcount-pinning the pages against eviction) and
+            # report the per-row hit; the client follows with the
+            # chain-wide skip on its prefill. Host-side table work only,
+            # under the manager's lock: no reason to queue behind compute
+            matched = self.manager.adopt_prefix(session.handle, probe)
+            resp = {"step": meta.get("step"), "prefix_matched": matched}
+            self._record_reply(session, meta, resp, [])
+            await stream.send(resp)
             return
         # speculative accept from the previous round: compact the surviving
         # KV rows onto the committed prefix before this step's compute
@@ -855,10 +1451,11 @@ class BlockServer:
             self.spec_tokens_accepted += kept
             session.spec_accepted += kept
         if meta.get("accept_only"):
-            # (the JAX server records this reply for at-most-once retries
-            # through a resumed stream; the port has no resume, ROADMAP
-            # item 12: a lost ack reroutes and replays on fresh sessions)
-            await stream.send({"step": meta.get("step"), "ack": True})
+            # the accept above compacted KV: record before delivery so a
+            # retried accept after a lost reply never compacts twice
+            resp = {"step": meta.get("step"), "ack": True}
+            self._record_reply(session, meta, resp, [])
+            await stream.send(resp)
             return
         hidden = tensors[0]  # CPU, in the sender's wire dtype
         tree_mask = depths = None
@@ -900,8 +1497,10 @@ class BlockServer:
                 commit_lens = commit_lens[rows[0]:rows[1]]
         # dispatch on the serialized compute queue; the fetch runs here,
         # off the queue, so concurrent sessions overlap their round trips
+        prefix_skip = meta.get("prefix_skip")
         try:
-            if self._batchable(commit, hidden, tree_mask, commit_lens):
+            if self._batchable(commit, hidden, tree_mask, commit_lens,
+                               prefix_skip):
                 # continuous batching: compatible single-token decode steps
                 # of OTHER sessions that are queued right now (or arrive
                 # within BBTPU_BATCH_WINDOW_MS) share one merged span
@@ -939,14 +1538,15 @@ class BlockServer:
                     # queue, so other sessions' decode steps run between
                     # chunks instead of stalling behind the whole prompt
                     out_dev, t_dispatch_ms = await self._run_chunked_prefill(
-                        session, handle, hidden, spans, deadline
+                        session, handle, hidden, spans, deadline,
+                        prefix_skip,
                     )
                 else:
                     is_prefill = hidden.shape[1] > 1 and tree_mask is None
                     out_dev, t_dispatch_ms = await self.compute.submit(
                         PRIORITY_INFERENCE, self._compute_step, session,
                         handle, hidden, commit, commit_lens, tree_mask,
-                        depths,
+                        depths, prefix_skip,
                         deadline=deadline,
                         task_class="prefill" if is_prefill else "decode",
                     )
@@ -1010,17 +1610,31 @@ class BlockServer:
             push_tensors = [out]
             if tree_mask is not None:
                 push_tensors.append(torch.from_numpy(tree_mask.astype(np.uint8)))
-            conn = await self.peers.get(nxt["host"], nxt["port"])
-            async with self.peers.limiter(nxt["host"], nxt["port"]).slot():
-                await conn.push("rpc_push", push_meta, push_tensors)
+            try:
+                conn = await self.peers.get(nxt["host"], nxt["port"])
+                async with self.peers.limiter(nxt["host"],
+                                              nxt["port"]).slot():
+                    await conn.push("rpc_push", push_meta, push_tensors)
+            except (ConnectionClosed, OSError, RpcError) as e:
+                # the NEXT hop failed, not this session's client stream:
+                # fail the step with an error frame the client recovers
+                # from at once. Re-raised as is, the wire error would park
+                # a leased session as if its own stream had died, and the
+                # client would wait out its step timeout for a reply
+                raise RuntimeError(
+                    f"push to the next span at {nxt['host']}:{nxt['port']} "
+                    f"failed: {e}"
+                ) from e
             # ack our own client stream so it sees this hop succeeded
-            await stream.send(
-                {"step": meta.get("step"), "ack": True, **timing_meta}
-            )
+            # (recorded AFTER the downstream push: a resume-retried step
+            # re-pushes only if the push itself never happened)
+            resp = {"step": meta.get("step"), "ack": True, **timing_meta}
+            self._record_reply(session, meta, resp, [])
+            await stream.send(resp)
         elif reply == "ack":
-            await stream.send(
-                {"step": meta.get("step"), "ack": True, **timing_meta}
-            )
+            resp = {"step": meta.get("step"), "ack": True, **timing_meta}
+            self._record_reply(session, meta, resp, [])
+            await stream.send(resp)
         else:
             resp = {"step": meta.get("step"), **timing_meta}
             for key in ("mb", "rows"):
@@ -1028,6 +1642,9 @@ class BlockServer:
                     resp[key] = meta[key]
             if keep is not None:
                 resp["keep"] = keep.tolist()
+            # record-then-send: the KV commit already happened at
+            # dispatch, so this reply is the step's only at-most-once fence
+            self._record_reply(session, meta, resp, [out])
             await stream.send(resp, [out])
 
     def _accept(self, session: _Session, accept: list) -> None:
@@ -1039,7 +1656,8 @@ class BlockServer:
         self.manager.accept_speculative(session.handle, accept)
 
     def _compute_step(self, session: _Session, handle, hidden, commit,
-                      commit_lens, tree_mask=None, depths=None):
+                      commit_lens, tree_mask=None, depths=None,
+                      prefix_skip=None):
         """Runs on the compute thread: plan packing + asynchronous device
         dispatch only (the fetch happens off the queue). Returns the
         device output and the dispatch time in ms."""
@@ -1047,6 +1665,13 @@ class BlockServer:
             raise SessionKVLost("session cache lost: replay")
         session.last_step_at = clock.monotonic()
         t0 = clock.perf_counter()
+        if self.manager.has_adopted(handle):
+            # settle an outstanding probe adoption: shrink each row's
+            # adopted prefix to the chain-wide skip the client uses. A step
+            # that declares no prefix_skip drops the adoption (skip 0), the
+            # safe reading of a client that changed its mind
+            self.manager.trim_adopted(handle, int(prefix_skip or 0))
+        session.adoption_settled = True
         if hidden.shape[1] > 1 and tree_mask is None:
             out = self.executor.prefill(
                 handle, hidden, commit=commit, layers=session.layers,
@@ -1062,7 +1687,12 @@ class BlockServer:
                 layers=session.layers, depths=depths, fetch=False,
             )
         if commit_lens is not None:
+            # a ragged explicit-length commit is a failover replay: count
+            # the replayed tokens (the replication bound reads them)
             self.manager.commit(handle, lengths=commit_lens)
+            self.failover_replayed_tokens += int(
+                hidden.shape[0] * hidden.shape[1]
+            )
         self.step_dispatches += 1
         self.step_tokens += int(hidden.shape[0]) * int(hidden.shape[1])
         return out, (clock.perf_counter() - t0) * 1000.0
@@ -1096,7 +1726,8 @@ class BlockServer:
         return spans if len(spans) > 1 else None
 
     async def _run_chunked_prefill(
-        self, session: _Session, handle, hidden, spans, deadline
+        self, session: _Session, handle, hidden, spans, deadline,
+        prefix_skip=None,
     ):
         """Drive one prefill as a stream of resumable chunk tasks. Each
         chunk is its own compute-queue submission at an AGING chunk
@@ -1105,9 +1736,11 @@ class BlockServer:
         client deadline re-checked between chunks and at each chunk's
         queue pop.
 
-        Chunks write their KV speculatively; the LAST chunk's compute-
-        thread slot commits the whole prompt, so any abort (deadline
-        expiry, a failed chunk) rolls back and frees every partial page.
+        Chunks write their KV speculatively; the FIRST chunk settles a
+        pending prefix-cache adoption (a suffix prefill chunks too), and
+        the LAST chunk's compute-thread slot commits the whole prompt, so
+        any abort (deadline expiry, a failed chunk) rolls back and frees
+        every partial page.
         Returns (per-chunk device outputs, total dispatch ms); `_fetch`
         concatenates the chunk list off the queue."""
         stream_t0 = clock.monotonic()
@@ -1130,7 +1763,7 @@ class BlockServer:
                         ("chunkm", session.layers, None, str(hidden.dtype),
                          e - s),
                         _ChunkMember(session, handle, hidden[:, s:e],
-                                     idx == last),
+                                     idx == last, idx == 0, prefix_skip),
                         self._compute_ragged_group,
                         deadline=deadline,
                         task_class="prefill",
@@ -1139,7 +1772,7 @@ class BlockServer:
                     out, dt_ms = await self.compute.submit(
                         aged_chunk_priority(stream_t0),
                         self._compute_prefill_chunk, session, handle,
-                        hidden[:, s:e], idx == last,
+                        hidden[:, s:e], idx == last, idx == 0, prefix_skip,
                         deadline=deadline,
                         task_class="prefill",
                     )
@@ -1176,14 +1809,19 @@ class BlockServer:
             self.manager.rollback(handle)
 
     def _compute_prefill_chunk(self, session: _Session, handle, hidden,
-                               last: bool):
+                               last: bool, first: bool = False,
+                               prefix_skip=None):
         """Runs on the compute thread: one chunk of a chunked prefill. Same
-        contract as _compute_step (dispatch only); every chunk writes
-        speculatively and the LAST chunk commits the whole prompt."""
+        contract as _compute_step (dispatch only); the FIRST chunk settles
+        a pending prefix-cache adoption, every chunk writes speculatively
+        and the LAST chunk commits the whole prompt."""
         if not self.manager.epoch_valid(handle):
             raise SessionKVLost("session cache lost: replay")
         session.last_step_at = clock.monotonic()
         t0 = clock.perf_counter()
+        if first and self.manager.has_adopted(handle):
+            self.manager.trim_adopted(handle, int(prefix_skip or 0))
+        session.adoption_settled = True
         # recovery owner: _run_chunked_prefill's abort (a rollback)
         out = self.executor.prefill_chunk(
             handle, hidden, commit=False, layers=session.layers, fetch=False,
@@ -1195,17 +1833,22 @@ class BlockServer:
         return out, (clock.perf_counter() - t0) * 1000.0
 
     # ------------------------------------------------ continuous batching
-    def _batchable(self, commit, hidden, tree_mask, commit_lens) -> bool:
+    def _batchable(self, commit, hidden, tree_mask, commit_lens,
+                   prefix_skip=None) -> bool:
         """Whether this step may share a merged dispatch: plain committing
         single-token decode only. Tree-verify steps, prefills, ragged
         replays and speculative (commit=False) steps keep their own compute
-        task: their table side effects are per session."""
+        task: their table side effects are per session. A step declaring
+        prefix_skip is a suffix PREFILL even at one token and settles its
+        adoption on the solo path; a draining server stops coalescing."""
         return (
             self.max_batch > 1
             and hidden.shape[1] == 1
             and tree_mask is None
             and commit_lens is None
+            and prefix_skip is None
             and commit
+            and not self._draining
         )
 
     def _compute_step_group(self, members: list[_BatchMember]) -> list:
@@ -1222,8 +1865,12 @@ class BlockServer:
         for i, m in enumerate(members):
             if not self.manager.epoch_valid(m.handle):
                 results[i] = SessionKVLost("session cache lost: replay")
-            # (ROADMAP item 12: parked and unsettled-adoption members
-            # take the solo path here)
+            elif (not m.session.adoption_settled
+                  and self.manager.has_adopted(m.handle)):
+                # an UNSETTLED prefix adoption takes the solo path
+                # (_compute_step trims it to the declared skip first), but
+                # only until its first step settles it
+                results[i] = self._solo_member_step(m)
             else:
                 ready.append(i)
         if len(ready) == 1:
@@ -1294,7 +1941,8 @@ class BlockServer:
         (`spec_batch`): a plain speculative (commit=False) tree step with
         depth positions. Pruned relay steps keep the solo path (their keep
         set is computed per session against the solo step's layout), as do
-        failover replays (commit_lens)."""
+        failover replays (commit_lens) and prefix-skip settles; a draining
+        server stops coalescing."""
         return (
             self.spec_batch
             and self.max_batch > 1
@@ -1303,6 +1951,8 @@ class BlockServer:
             and not commit
             and commit_lens is None
             and meta.get("prune") is None
+            and meta.get("prefix_skip") is None
+            and not self._draining
         )
 
     def _compute_tree_group(self, members: list[_TreeMember]) -> list:
@@ -1374,7 +2024,9 @@ class BlockServer:
         admitted them. Returns one outcome per member, as
         _compute_step_group does.
 
-        Members whose KV is gone fail alone. A chunk-free, tree-free group
+        Members whose KV is gone fail alone; a member with an unsettled
+        prefix adoption (a chunk stream's first chunk, or a decode or tree
+        step) takes its kind's solo path. A chunk-free, tree-free group
         is a merged decode group; a lone chunk or a lone tree runs solo;
         everything else runs as ONE ragged span dispatch via
         executor.ragged_group, replayed per kind if the fused dispatch
@@ -1390,10 +2042,20 @@ class BlockServer:
                 )
             if not self.manager.epoch_valid(m.handle):
                 results[i] = SessionKVLost("session cache lost: replay")
-            # (ROADMAP item 12: parked and adopted members take their
-            # kind's solo path here)
             elif isinstance(m, _ChunkMember):
-                chunk_idx.append(i)
+                if m.first and self.manager.has_adopted(m.handle):
+                    # the adoption settle mutates the table mid-group: the
+                    # solo chunk path owns that side effect
+                    results[i] = self._solo_chunk_step(m)
+                else:
+                    chunk_idx.append(i)
+            elif (not m.session.adoption_settled
+                  and self.manager.has_adopted(m.handle)):
+                # the unsettled-adoption carve-out of _compute_step_group
+                results[i] = (
+                    self._solo_tree_step(m) if isinstance(m, _TreeMember)
+                    else self._solo_member_step(m)
+                )
             elif isinstance(m, _TreeMember):
                 tree_idx.append(i)
             else:
@@ -1434,7 +2096,8 @@ class BlockServer:
     def _solo_chunk_step(self, m: _ChunkMember):
         try:
             return self._compute_prefill_chunk(
-                m.session, m.handle, m.hidden, m.last
+                m.session, m.handle, m.hidden, m.last, m.first,
+                m.prefix_skip,
             )
         except Exception as e:
             return e

@@ -26,7 +26,8 @@ Phases:
    device's (`cuda_ms`); also host-paced, decode and int4 decode with a
    cold L2, flash at both prefill-chunk shapes and in f32, ragged at the
    mixed and the tree step's shapes, chunk at the serving path's two B=1
-   launches (warm and cold) and at PR 1-4's B=4 table shape.
+   launches (warm and cold), at phase 7's adopted-prefix suffix (40
+   tokens over 1000) and at PR 1-4's B=4 table shape.
 3. The executor's path in f32 (TF32 off) at full Llama-3-8B width, 4
    layers, random weights from a seeded generator: a 1000-token prefill of
    batch 2, 8 greedy decodes and a 24-token follow-up must match
@@ -124,6 +125,35 @@ Phases:
    No run may replay a group or decline the ragged path. Prints per-token
    time, rounds, tokens per round, the drafters' and the servers' accept
    rates and the launches by kernel, and the card's name and power limit.
+7. The shared-prefix cache, session leases and standby replication
+   served in bf16 over phase 4's weights: a registry and two port
+   BlockServers (blocks [0, 16) and [16, 32)) with `prefix_cache=True`,
+   `session_lease_s=30`, `max_batch=1`, 1024-page arenas, push sessions
+   of the port client, 16-token pages of random ids; launch counts reset
+   and read around each run (paths "prefix", "lease", "repl"):
+   (f) A (992 tokens) publishes its pages; B and C (A's first 960 tokens
+       + 40 of their own) each adopt 60 pages and prefill 40 tokens on
+       the paged chunk kernel; D (A again) adopts 62 pages, is trimmed to
+       991, and its one-token suffix copies the shared last page and runs
+       on the decode kernel; 16 greedy tokens each. Each server: 3 hits
+       of 960 + 960 + 991 tokens and a copy-on-write; flash only for A
+       (2 a layer), chunk launches = 2 a layer, decode launches = a layer
+       per decode step; no page referenced after close; B, C and D held
+       teacher-forced as (b)-(e) against the solo executor prefilling the
+       full prompt.
+   (g) E (1000 tokens) decodes 8 tokens, every span connection of the
+       session is aborted, the client resumes both streams and decodes 8
+       more: tokens identical to a fault-free run of E, zero replay, one
+       resume on each server.
+   (h) two standbys (one per span) join; F (1000 tokens,
+       `kv_repl_every=4`) decodes 64 tokens; once the standbys' installed
+       pages stop growing (at most 10 s) the [16, 32) server of F's route
+       stops; the client recovers onto the standbys, replaying at most
+       (4 + 1) x 16 tokens, and decodes 8 more, held teacher-forced over
+       F's 72 positions.
+   Prints each session's time to first token and prefill wire bytes, the
+   resume's and the kv_put sweeps' times, the kv_put count and bytes, the
+   launches by kernel, and the card's name and power limit.
 
 Prints the card's name and power limit, per-phase results, a
 `{"kernels": [...]}` line, and as its last line
@@ -627,7 +657,9 @@ def time_chunk(gen, check) -> tuple[tuple, dict]:
     """The chunk kernel at the serving run's two launches, both B=1 over
     the executor's 128-page bucket: the follow-up turn (q [1,32,32,128],
     t_real 24, 1056 tokens: the row's own time) and the tree verify (q
-    [1,8,32,128], an 8-node tree, 1040 tokens; `tree_*` keys), each warm,
+    [1,8,32,128], an 8-node tree, 1040 tokens; `tree_*` keys), phase 7's
+    adopted-prefix suffix prefill (q [1,64,32,128], t_real 40, 1000
+    tokens, a 64-page table; `suffix_*` keys), each warm,
     cold L2 and beside its plain version and bound; and PR 1-4's table
     shape (q [4,32,32,128], t_real 24, 1032 tokens; `b4_*` keys), with its
     host-paced time; and the wrapper's host time per call at each shape
@@ -645,6 +677,7 @@ def time_chunk(gen, check) -> tuple[tuple, dict]:
     for label, b, t, t_real, length, pages, tree in (
         ("", 1, 32, 24, 1056, 128, False),
         ("tree_", 1, 8, 8, 1040, 128, True),
+        ("suffix_", 1, 64, 40, 1000, 64, False),
         ("b4_", 4, 32, 24, 1032, 65, False),
     ):
         q = _unit(gen, (b, t, H, HD), dt)
@@ -1548,18 +1581,20 @@ class ServerLoop:
 
 
 async def start_span_servers(layers, spec, uid, spans, dtype, num_pages,
-                             **server_kw):
-    """A port registry and one port BlockServer per span [(start, end)] on
-    the card, over slices of `layers` (shared tensors, no copy);
-    `server_kw` (max_batch, mixed_batch, prefill_chunk) goes to each."""
+                             reg=None, **server_kw):
+    """A port registry (or `reg`, already running) and one port BlockServer
+    per span [(start, end)] on the card, over slices of `layers` (shared
+    tensors, no copy); `server_kw` (max_batch, mixed_batch,
+    prefill_chunk, prefix_cache, session_lease_s) goes to each."""
     from bloombee_tpu_torch.server.block_server import BlockServer
     from bloombee_tpu_torch.swarm.registry import (
         RegistryClient,
         RegistryServer,
     )
 
-    reg = RegistryServer(host="127.0.0.1")
-    await reg.start()
+    if reg is None:
+        reg = RegistryServer(host="127.0.0.1")
+        await reg.start()
     servers = []
     for start, end in spans:
         server = BlockServer(
@@ -1581,10 +1616,11 @@ async def stop_span_servers(reg, servers):
     await reg.stop()
 
 
-def port_client(client, spec, reg_port, uid):
+def port_client(client, spec, reg_port, uid, **config):
     """The port's DistributedModelForCausalLM over the in-memory client
     parameters, routing with a RemoteSequenceManager over the port
-    registry (push on). The caller closes `model.manager.registry`."""
+    registry (push on; `config`: more ClientConfig fields). The caller
+    closes `model.manager.registry`."""
     from bloombee_tpu_torch.client import (
         ClientConfig,
         DistributedModelForCausalLM,
@@ -1596,7 +1632,7 @@ def port_client(client, spec, reg_port, uid):
         RegistryClient("127.0.0.1", reg_port), uid, spec.num_hidden_layers
     )
     return DistributedModelForCausalLM(
-        spec, client, manager, config=ClientConfig(use_push=True),
+        spec, client, manager, config=ClientConfig(use_push=True, **config),
         device="cuda",
     )
 
@@ -2076,6 +2112,7 @@ def phase_serving(profile: bool = False) -> dict[str, dict]:
     torch.cuda.empty_cache()
     launches.update(phase_served(layers, spec, client, gen))
     launches.update(phase_spec(layers, spec, client, gen))
+    launches.update(phase_prefix(layers, spec, client, gen))
     return launches
 
 
@@ -2123,7 +2160,8 @@ class ReplayWatch:
 
 def served_reference(layers, spec, local, prompts, follows, n_new,
                      feed=None, chunk=0, dtype=None):
-    """The 4 sessions solo on one in-process SpanExecutor with the server's
+    """The sessions (one per prompt: a [n, L] tensor or a list of [L_i]
+    tensors) solo on one in-process SpanExecutor with the server's
     calls (prefill for T>1, in `chunk`-token chunks as a chunking server
     cuts a prompt; B=1 decode for T=1): the prompt, n_new - 1 decodes and
     (unless `follows` is None) the follow-up turn and one decode, in bf16
@@ -2164,14 +2202,14 @@ def served_reference(layers, spec, local, prompts, follows, n_new,
         return out
 
     async def run():
-        for i in range(4):
+        for i in range(len(prompts)):
             fed = None if feed is None else feed[i].to("cuda")
 
             def nxt(k, tokens):
                 return tokens[-1] if fed is None else fed[k : k + 1]
 
             async with manager.allocate(1, 1100) as h:
-                prompt = embed(prompts[i : i + 1])
+                prompt = embed(prompts[i][None])
                 outs = [
                     ex.prefill_chunked(h, prompt, chunk, fetch=False)
                     if chunk else ex.prefill(h, prompt, fetch=False)
@@ -2181,7 +2219,7 @@ def served_reference(layers, spec, local, prompts, follows, n_new,
                     outs.append(decode(h, nxt(k, tokens)))
                     tokens.append(head(outs[-1]))
                 if follows is not None:
-                    outs.append(ex.prefill(h, embed(follows[i : i + 1]),
+                    outs.append(ex.prefill(h, embed(follows[i][None]),
                                            fetch=False))
                     tokens.append(head(outs[-1]))
                     outs.append(decode(h, nxt(n_new, tokens)))
@@ -2916,6 +2954,382 @@ def phase_spec(layers, spec, client, gen) -> dict:
     say(card_line())
     if failures:
         raise AssertionError("speculative runs failed: "
+                             + "; ".join(failures))
+    return by_path
+
+
+# ------------------------------------------------------------- phase 7
+PREFIX_SERVER_KW = {"prefix_cache": True, "session_lease_s": 30.0,
+                    "max_batch": 1}
+
+
+def prefill_wire(session) -> dict:
+    """Fill the returned dict with the wire traffic (every hop: the
+    client's send, the push between the servers, the reply) of the
+    session's next step, which must be its only step in flight."""
+    from bloombee_tpu_torch.wire import tensor_codec
+
+    box, step = {}, session.step
+
+    async def first_step(*args, **kwargs):
+        session.step = step
+        t0 = tensor_codec.transport_stats()["tx"]
+        out = await step(*args, **kwargs)
+        t1 = tensor_codec.transport_stats()["tx"]
+        box.update({k: t1[k] - t0[k]
+                    for k in ("n", "raw_bytes", "wire_bytes", "compressed")})
+        return out
+
+    session.step = first_step
+    return box
+
+
+def outs_last(rec):
+    """A tapped session's last-position step outputs, [steps, D] f32."""
+    import torch
+
+    return torch.cat([o[:, -1] for o in rec["outs"]]).float()
+
+
+def settled(servers, timeout_s: float = 10.0) -> list[dict]:
+    """Each server's page counts once its sessions' asynchronous teardown
+    has released every referenced page (or the timeout passed)."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        counts = [s.manager.table.counts() for s in servers]
+        if all(c["referenced"] == 0 for c in counts) or \
+                time.monotonic() > deadline:
+            return counts
+        time.sleep(0.05)
+
+
+def phase_prefix(layers, spec, client, gen) -> dict:
+    """Phase 7: the shared-prefix cache, session leases and standby
+    replication served at full width on phase 4's weights: a port registry
+    and port BlockServers over blocks [0, 16) and [16, 32) with the
+    prefix cache on, 30 s leases, 1024-page arenas and `max_batch=1`;
+    push sessions of the port client; launch counts reset and read around
+    each run (paths "prefix", "lease", "repl").
+
+    (f) prefix: A (992 tokens, 62 pages) runs first and publishes its
+        pages; then B and C (A's first 960 tokens + 40 of their own: each
+        adopts 60 pages and prefills 40 tokens on the chunk kernel) and D
+        (A again: adopts 62 pages, trimmed to 991, its one-token suffix
+        copies the shared last page and runs on the decode kernel), each
+        16 greedy tokens. Each server: 3 hits of 960 + 960 + 991 tokens,
+        a copy-on-write, no page referenced after close. Flash launches
+        for A's prefill only (2 a layer), chunk launches = layers x 2,
+        decode launches = layers x decode steps. B, C and D held
+        teacher-forced against the solo executor prefilling each full
+        prompt (`hold_teacher_forced`).
+    (g) lease: E (1000 tokens) decodes 8 tokens, every span connection of
+        the session is aborted, the client resumes and decodes 8 more:
+        tokens identical to a fault-free run of E on the same servers,
+        2 streams resumed, no decline, zero replay, one resume per server.
+    (h) replication: two more servers (standbys, one per span) join; F
+        (1000 tokens, `kv_repl_every=4`) decodes 64 tokens; once the
+        standbys' installed pages stop growing (at most 10 s), the
+        [16, 32) server of F's route stops; the client recovers onto the
+        standbys and decodes 8 more. Both standbys installed pages, the
+        replay is at most (4 + 1) x 16 tokens, and F's 72 positions are
+        held teacher-forced over its whole history.
+
+    Prints each session's time to first token and prefill wire bytes, the
+    resume's and the kv_put sweeps' times, the kv_put count and bytes, the
+    launch counts by kernel, and the card's name and power limit. Returns
+    each run's launch counts by path."""
+    import torch
+
+    from bloombee_tpu_torch.client import DistributedModelForCausalLM
+    from bloombee_tpu_torch.ops.cuda import build
+
+    t_phase = time.perf_counter()
+    n_layers, vocab = spec.num_hidden_layers, spec.vocab_size
+    spans = ((0, n_layers // 2), (n_layers // 2, n_layers))
+
+    def rand(n):
+        return torch.randint(0, vocab, (n,), generator=gen, device="cuda")
+
+    a = rand(992)
+    b = torch.cat([a[:960], rand(40)])
+    c = torch.cat([a[:960], rand(40)])
+    e, f = rand(1000), rand(1000)
+    local = DistributedModelForCausalLM(spec, client, None, device="cuda")
+    uid = "llama3-8b-prefix"
+    by_path, failures, report = {}, [], {}
+
+    async def prefix_run(reg_port):
+        model = port_client(client, spec, reg_port, uid, prefix_cache=True)
+        out = {}
+        try:
+            for name, p in (("A", a), ("B", b), ("C", c), ("D", a)):
+                async with model.inference_session(1100, 1) as session:
+                    rec = tap(session, model)
+                    wire = prefill_wire(session)
+                    ids = await model.generate(p[None], max_new_tokens=16,
+                                               session=session)
+                out[name] = {
+                    "tokens": ids[0, -16:].cpu(), "lasts": outs_last(rec),
+                    "ttft_ms": (rec["embeds"][1] - rec["embeds"][0]) * 1e3,
+                    "prefill_wire": wire,
+                }
+        finally:
+            await model.manager.registry.close()
+        return out
+
+    async def lease_run(reg_port):
+        model = port_client(client, spec, reg_port, uid, prefix_cache=False)
+        try:
+            async with model.inference_session(1100, 1) as session:
+                plain = await model.generate(e[None], max_new_tokens=16,
+                                             session=session)
+            async with model.inference_session(1100, 1) as session:
+                def abort_at_9(n):
+                    # the 9th embed: 8 tokens chosen, the next step fails
+                    if n == 9:
+                        for sp in session._spans:
+                            sp.conn.abort("chip_smoke: injected failure")
+
+                tap(session, model, abort_at_9)
+                resume, resume_ms = session._try_resume, []
+
+                async def timed_resume():
+                    t0 = time.perf_counter()
+                    ok = await resume()
+                    resume_ms.append((time.perf_counter() - t0) * 1e3)
+                    return ok
+
+                session._try_resume = timed_resume
+                ids = await model.generate(e[None], max_new_tokens=16,
+                                           session=session)
+                counters = {k: getattr(session, k) for k in (
+                    "resumed_streams", "resume_declines",
+                    "failover_replayed_tokens")}
+        finally:
+            await model.manager.registry.close()
+        return plain[0, -16:].cpu(), ids[0, -16:].cpu(), counters, resume_ms
+
+    async def repl_run(reg_port, servers, stop_on_server_loop):
+        model = port_client(client, spec, reg_port, uid, prefix_cache=True,
+                            kv_repl_every=4, ban_timeout=0.5, ban_max=2.0)
+        by_id = {s.server_id: s for s in servers}
+        try:
+            async with model.inference_session(1100, 1) as session:
+                rec = tap(session, model)
+                primaries = [by_id[s.span.peer_id] for s in session._spans]
+                standbys = [by_id[r["peer"]] for r in session._repl]
+                ids = await model.generate(f[None], max_new_tokens=64,
+                                           session=session)
+                t0, last, stable_since = time.perf_counter(), None, None
+                while time.perf_counter() - t0 < 10.0:
+                    now = [s.manager.repl_pages_installed for s in standbys]
+                    if now != last:
+                        last, stable_since = now, time.perf_counter()
+                    elif min(now) > 0 and \
+                            time.perf_counter() - stable_since >= 1.0:
+                        break
+                    await asyncio.sleep(0.1)
+                wait_s = time.perf_counter() - t0
+                sent = [p.repl_pages_sent for p in primaries]
+                await asyncio.wrap_future(stop_on_server_loop(primaries[1]))
+                more = await model.generate(ids[:, -1:], max_new_tokens=8,
+                                            session=session)
+                counters = {k: getattr(session, k) for k in (
+                    "resumed_streams", "resume_declines",
+                    "failover_replayed_tokens")}
+                route_after = [s.span.peer_id for s in session._spans]
+        finally:
+            await model.manager.registry.close()
+        tokens = torch.cat([ids[0, -64:], more[0, -8:]]).cpu()
+        return {
+            "tokens": tokens, "lasts": outs_last(rec), "counters": counters,
+            "installed": [s.manager.repl_pages_installed for s in standbys],
+            "sent": sent, "wait_s": wait_s, "primaries": primaries,
+            "standbys": standbys,
+            "route_after_is_standbys": [
+                pid == s.server_id for pid, s in zip(route_after, standbys)
+            ],
+        }
+
+    def reference(prompts, feeds, n_new, layers32):
+        return [
+            served_reference(ls, spec, local, prompts, None, n_new,
+                             feed=feeds, dtype=dt)[0]
+            for ls, dt in ((layers, None), (layers32, torch.float32))
+        ]
+
+    with ReplayWatch() as watch, ServerLoop() as servers_loop:
+        reg, servers = servers_loop.run(start_span_servers(
+            layers, spec, uid, spans, torch.bfloat16, 1024,
+            **PREFIX_SERVER_KW
+        ))
+        stopped = []
+        try:
+            # (f) prefix
+            torch.cuda.synchronize()
+            build.reset_launch_counts()
+            pf = asyncio.run(prefix_run(reg.port))
+            torch.cuda.synchronize()
+            launches = by_path["prefix"] = dict(build.LAUNCHES)
+            counts_f = settled(servers)
+            infos = [servers_loop.run(s._rpc_info({}, []))[0]
+                     for s in servers]
+            hits = [(i["prefix_hits"], i["prefix_hit_tokens"],
+                     i["cow_copies"]) for i in infos]
+            # decode steps: 15 each for A, B and C; D's one-token suffix
+            # and its 15
+            want = {
+                "flash_attention": 2 * n_layers,
+                "paged_chunk_attention": 2 * n_layers,
+                "paged_decode_attention": (15 * 3 + 16) * n_layers,
+            }
+            report["prefix"] = {
+                "ttft_ms": {k: v["ttft_ms"] for k, v in pf.items()},
+                "prefill_wire": {k: v["prefill_wire"] for k, v in pf.items()},
+                "hits_hit_tokens_cow": hits, "counts_after_close": counts_f,
+                "launches": launches, "launches_want": want,
+            }
+            for name, n in want.items():
+                if launches.get(name, 0) != n:
+                    failures.append(f"prefix: {launches.get(name, 0)} "
+                                    f"{name} launches, want {n}")
+            if any(h[:2] != (3, 960 + 960 + 991) or h[2] < 1 for h in hits):
+                failures.append(f"prefix: hits/tokens/copies {hits}")
+            if any(c["referenced"] for c in counts_f):
+                failures.append(f"prefix: pages referenced after close "
+                                f"{counts_f}")
+            # (g) lease
+            torch.cuda.synchronize()
+            build.reset_launch_counts()
+            plain, resumed, lease_c, resume_ms = asyncio.run(
+                lease_run(reg.port)
+            )
+            torch.cuda.synchronize()
+            by_path["lease"] = dict(build.LAUNCHES)
+            resumed_srv = [s.sessions_resumed for s in servers]
+            report["lease"] = {
+                "tokens_identical": torch.equal(plain, resumed),
+                "client": lease_c, "resume_ms": resume_ms,
+                "sessions_resumed": resumed_srv,
+                "launches": by_path["lease"],
+            }
+            if not torch.equal(plain, resumed):
+                failures.append(f"lease: tokens {resumed.tolist()} != "
+                                f"fault-free {plain.tolist()}")
+            if lease_c != {"resumed_streams": 2, "resume_declines": 0,
+                           "failover_replayed_tokens": 0} or \
+                    resumed_srv != [1, 1]:
+                failures.append(f"lease: {lease_c}, servers resumed "
+                                f"{resumed_srv}")
+            # (h) replication: two standbys join the same registry
+            _, more = servers_loop.run(start_span_servers(
+                layers, spec, uid, spans, torch.bfloat16, 1024, reg=reg,
+                **PREFIX_SERVER_KW
+            ))
+            servers += more
+            puts = {"n": 0, "pages": 0, "bytes": 0, "ms": []}
+            sweeps_ms = []
+            for s in servers:
+                put, sweep = s._kv_put, s._replicate_pass
+
+                async def timed_put(meta, tensors, put=put):
+                    t0 = time.perf_counter()
+                    out = await put(meta, tensors)
+                    puts["ms"].append((time.perf_counter() - t0) * 1e3)
+                    puts["n"] += 1
+                    puts["pages"] += len(meta.get("hashes") or [])
+                    puts["bytes"] += sum(t.numel() * t.element_size()
+                                         for t in tensors)
+                    return out
+
+                async def timed_sweep(session, sweep=sweep):
+                    t0 = time.perf_counter()
+                    progress = await sweep(session)
+                    if progress:
+                        sweeps_ms.append((time.perf_counter() - t0) * 1e3)
+                    return progress
+
+                s._kv_put, s._replicate_pass = timed_put, timed_sweep
+                s.rpc.unary_handlers["kv_put"] = timed_put
+            torch.cuda.synchronize()
+            build.reset_launch_counts()
+            hr = asyncio.run(repl_run(
+                reg.port, servers,
+                lambda s: asyncio.run_coroutine_threadsafe(
+                    s.stop(), servers_loop.loop
+                ),
+            ))
+            torch.cuda.synchronize()
+            by_path["repl"] = dict(build.LAUNCHES)
+            stopped.append(hr["primaries"][1])
+            replayed = hr["counters"]["failover_replayed_tokens"]
+            report["repl"] = {
+                "client": hr["counters"], "installed": hr["installed"],
+                "primaries_sent": hr["sent"], "wait_s": hr["wait_s"],
+                "route_after_is_standbys": hr["route_after_is_standbys"],
+                "kv_put": {"n": puts["n"], "pages": puts["pages"],
+                           "bytes": puts["bytes"],
+                           "ms_median": sorted(puts["ms"])[
+                               len(puts["ms"]) // 2] if puts["ms"] else None},
+                "sweep_ms": sweeps_ms, "launches": by_path["repl"],
+            }
+            if not all(n > 0 for n in hr["installed"]):
+                failures.append(f"repl: standbys installed {hr['installed']}")
+            if not 0 < replayed <= (4 + 1) * PS:
+                failures.append(f"repl: {replayed} tokens replayed, want 1.."
+                                f"{(4 + 1) * PS}")
+        finally:
+            servers_loop.run(stop_span_servers(
+                reg, [s for s in servers if s not in stopped]
+            ))
+            for s in stopped:
+                servers_loop.run(s.registry.close())
+            del servers
+    torch.cuda.empty_cache()
+    # teacher-forced: B, C and D, then F's whole history
+    torch.backends.cuda.matmul.allow_tf32 = False
+    layers32 = [{k: v.float() for k, v in layer.items()} for layer in layers]
+    names = ("B", "C", "D")
+    ref, truth = reference([b, c, a], [pf[k]["tokens"] for k in names], 16,
+                           layers32)
+    held_f = hold_teacher_forced(local, [pf[k]["lasts"] for k in names],
+                                 [pf[k]["tokens"] for k in names], ref, truth)
+    ref, truth = reference([f], [hr["tokens"]], 72, layers32)
+    held_h = hold_teacher_forced(local, [hr["lasts"]], [hr["tokens"]], ref,
+                                 truth)
+    del layers32
+    torch.cuda.empty_cache()
+    report["prefix"]["held"] = held_f
+    report["repl"]["held"] = held_h
+    if not held_f["ok"]:
+        failures.append("prefix: differs from the solo executor")
+    if not held_h["ok"] or hr["lasts"].shape[0] != 72:
+        failures.append("repl: differs from the solo executor")
+    if watch.seen:
+        failures.append(f"group replays {watch.seen}")
+    ttft = report["prefix"]["ttft_ms"]
+    say(f"[prefix] (f) Llama-3-8B bf16 over {[list(s) for s in spans]}, "
+        f"time to first token A {ttft['A']:.1f} ms, B {ttft['B']:.1f}, C "
+        f"{ttft['C']:.1f}, D {ttft['D']:.1f}; prefill wire bytes (all "
+        f"hops) {({k: v['wire_bytes'] for k, v in report['prefix']['prefill_wire'].items()})}; "
+        f"hits/tokens/copies per server {hits}; launches {by_path['prefix']}"
+        f" (wanted {want}); held against the solo executor: {held_f}")
+    say(f"[lease] (g) resume after aborting both connections: tokens "
+        f"identical {report['lease']['tokens_identical']}, {lease_c}, "
+        f"resume {[round(x, 2) for x in resume_ms]} ms, servers resumed "
+        f"{resumed_srv}; launches {by_path['lease']}")
+    say(f"[repl] (h) kv_repl_every=4: standbys installed {hr['installed']} "
+        f"pages (primaries sent {hr['sent']}, settled in "
+        f"{hr['wait_s']:.2f} s); kv_put {report['repl']['kv_put']}; sweeps "
+        f"{[round(x, 1) for x in sweeps_ms]} ms; after the [16, 32) "
+        f"primary stopped: {hr['counters']}, route on standbys "
+        f"{hr['route_after_is_standbys']}; launches {by_path['repl']}; "
+        f"held against the solo executor over 72 positions: {held_h}")
+    say("[prefix] " + json.dumps(report, default=str))
+    say(f"[prefix] phase 7 took {time.perf_counter() - t_phase:.1f} s")
+    say(card_line())
+    if failures:
+        raise AssertionError("prefix/lease/repl runs failed: "
                              + "; ".join(failures))
     return by_path
 

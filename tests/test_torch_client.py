@@ -410,9 +410,8 @@ def test_integrity_client_through_jax_integrity_server(loop, tiny_model_dir,
 
 # --------------------------------------------------------------- refusals
 @pytest.mark.parametrize("field,value,item", [
-    ("server_decode", True, "11"), ("prefix_cache", True, "12"),
-    ("kv_repl_every", 4, "12"), ("resume", True, "12"),
-    ("active_adapter", "lora-a", "16"), ("audit_p", 0.1, "19"),
+    ("server_decode", True, "11"), ("active_adapter", "lora-a", "16"),
+    ("audit_p", 0.1, "19"),
 ])
 def test_refused_config_fields(field, value, item):
     with pytest.raises(ValueError, match=f"{field}.*item {item}"):

@@ -11,8 +11,8 @@ them through a port registry:
   (the analog of test_bf16_wire_logits_close);
 - mixed chains, a JAX server then a port server and the reverse, with
   push, match HF greedy: the frames are byte-compatible both ways;
-- a step asking for what the server lacks (decode_n, chain, kv_repl,
-  prefix_probe) fails with an RpcError naming the key;
+- a step asking for what the server lacks (decode_n, chain) fails with
+  an RpcError naming the key;
 - a port server announces to a JAX registry, and the JAX registry client
   reads the record back; rpc_info answers a JAX connection.
 
@@ -280,9 +280,7 @@ def test_mixed_chain_matches_hf(loop, tiny_model_dir, registry, order):
 
 @pytest.mark.parametrize("key,value", [
     ("decode_n", 4),
-    ("prefix_probe", [["0" * 32]]),
     ("chain", {"n": 4}),
-    ("kv_repl", {"standby": ["127.0.0.1", 1], "chains": [[]]}),
 ])
 def test_refused_step_keys_fail_loudly(loop, port_chain, key, value):
     server = port_chain[0]
