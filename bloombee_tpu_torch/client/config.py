@@ -20,7 +20,6 @@ import dataclasses
 
 # field -> (what it asks for, ROADMAP Queue 1 item)
 UNPORTED_FIELDS = {
-    "server_decode": ("server-side multi-step decode", 11),
     "active_adapter": ("per-request LoRA adapters", 16),
     "audit_p": ("cross-replica activation audits", 19),
 }
@@ -51,6 +50,10 @@ class ClientConfig:
     chunked_head_step: int = 16384
     # not ported (UNPORTED_FIELDS): must stay off
     active_adapter: str | None = None
+    # opt-in server-side multi-step decode: a greedy generate over a route
+    # covering the whole model asks span 0 for `server_decode_chunk`
+    # tokens per RPC (fused or stepped on one span, chained over several);
+    # servers that cannot decline and the client goes on per step
     server_decode: bool = False
     server_decode_chunk: int = 32
     # shared-prefix KV cache: probe servers' page pools before the first

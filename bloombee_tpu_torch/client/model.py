@@ -12,12 +12,16 @@ Pallas kernel too.
 continues a session across calls (:182-216). Token ids go in as int64
 tensors or numpy arrays and come out as int64 tensors on the host; hidden
 states and logits live on the client's device, which is CUDA unless the
-caller asks for the CPU. Server-side multi-step decode (`server_decode`)
-is not ported yet (ROADMAP Queue 1 item 11) and raises.
+caller asks for the CPU. With `server_decode` (or
+`ClientConfig.server_decode`) a greedy generate over a route covering the
+whole model asks the servers for chunks of tokens per RPC
+(`InferenceSession.decode_n`) after the prefill, and goes on per step on
+the same session when they decline.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 
 import numpy as np
@@ -25,7 +29,10 @@ import torch
 
 from bloombee_tpu_torch.client.config import ClientConfig
 from bloombee_tpu_torch.client.sequence_manager import RemoteSequenceManager
-from bloombee_tpu_torch.client.session import InferenceSession
+from bloombee_tpu_torch.client.session import (
+    DecodeNUnsupported,
+    InferenceSession,
+)
 from bloombee_tpu_torch.models.checkpoint import load_client_params, load_spec
 from bloombee_tpu_torch.models.head import (
     embed_impl,
@@ -34,6 +41,8 @@ from bloombee_tpu_torch.models.head import (
 )
 from bloombee_tpu_torch.models.spec import ModelSpec
 from bloombee_tpu_torch.utils.device import resolve_device
+
+logger = logging.getLogger(__name__)
 
 
 def _ids(x) -> torch.Tensor:
@@ -175,13 +184,8 @@ class DistributedModelForCausalLM:
         """Prompt plus new tokens, [B, S + n] int64 on the host. Sampling
         draws from a torch.Generator seeded by `seed` on the client's
         device: reproducible, but not the same draws as the JAX client's
-        numpy generator."""
-        if server_decode:
-            raise NotImplementedError(
-                "server_decode asks for server-side multi-step decode, which "
-                "the port's client does not have yet (ROADMAP Queue 1 item "
-                "11)"
-            )
+        numpy generator. `server_decode` (None -> the config's) decodes
+        greedy tokens in server-side chunks."""
         self.config.validate()
         input_ids = _ids(input_ids)
         b, s = input_ids.shape
@@ -191,7 +195,25 @@ class DistributedModelForCausalLM:
             session = self.inference_session(max_length, b)
             await session.__aenter__()
         gen = torch.Generator(device=self.device).manual_seed(seed)
+        use_sd = (
+            self.config.server_decode if server_decode is None
+            else server_decode
+        )
         try:
+            if (
+                use_sd
+                and not do_sample
+                and max_new_tokens > 0
+                and session._spans
+                and session._spans[0].span.start == 0
+                and session._spans[-1].span.end == self.spec.num_hidden_layers
+                and (len(session._spans) == 1 or session.use_push)
+            ):
+                # a declining server is handled inside: per-step decoding
+                # goes on on the same session, whose KV holds the prefill
+                return await self._generate_server_decode(
+                    session, input_ids, max_length, eos_token_id
+                )
             out = await session.step(self.embed(input_ids), ids=input_ids)
             ids = input_ids
             finished = torch.zeros((b,), dtype=torch.bool)
@@ -215,6 +237,104 @@ class DistributedModelForCausalLM:
         finally:
             if own_session:
                 await session.__aexit__(None, None, None)
+
+    async def _generate_server_decode(
+        self, session, input_ids, max_length, eos_token_id
+    ) -> torch.Tensor:
+        """Greedy generation with server-side multi-step decode: the
+        prefill and the first token as usual, then chunks of
+        `server_decode_chunk` tokens per RPC through `session.decode_n`.
+        Token-identical to the per-step loop on the same device
+        (runtime/decode_loop.py's exactness contract)."""
+        b = input_ids.shape[0]
+
+        def chunk_now() -> int:
+            # the chunk, clamped to the CURRENT route's advertised
+            # decode_n_max (a re-route may land on a server with a smaller
+            # bound, which would decline a larger chunk), rounded down to
+            # a power of two (the JAX server runs pow2 buckets)
+            c = max(1, int(self.config.server_decode_chunk))
+            server_max = min(
+                (
+                    s.span.server_info.decode_n_max
+                    for s in session._spans
+                    if s.span.server_info.decode_n_max
+                ),
+                default=None,
+            )
+            if server_max is not None:
+                c = min(c, int(server_max))
+            return 1 << (c.bit_length() - 1)
+
+        head_dtype = str(self.params["lm_head"].dtype).removeprefix("torch.")
+        out = await session.step(self.embed(input_ids), ids=input_ids)
+        finished = torch.zeros((b,), dtype=torch.bool)
+        next_ids, finished = self._greedy_next(
+            self.logits(out[:, -1:])[:, 0], finished, eos_token_id
+        )
+        ids = torch.cat([input_ids, next_ids[:, None]], dim=1)
+        while ids.shape[1] < max_length and not (
+            eos_token_id is not None and finished.all()
+        ):
+            # a partial chunk rounds DOWN to a power of two as well
+            remaining = max_length - ids.shape[1]
+            n = min(chunk_now(), 1 << (remaining.bit_length() - 1))
+            try:
+                toks = torch.from_numpy(await session.decode_n(
+                    next_ids.numpy(), n, eos_token_id=eos_token_id,
+                    finished=finished.numpy(), head_dtype=head_dtype,
+                ))
+            except DecodeNUnsupported as e:
+                # the server declined (or a recovery re-routed onto a
+                # route that cannot chain): go on per step on the SAME
+                # session, whose KV holds everything generated so far
+                logger.warning(
+                    "server-side decode declined (%s); per-step path", e
+                )
+                return await self._continue_per_step(
+                    session, ids, next_ids, finished, max_length,
+                    eos_token_id,
+                )
+            if eos_token_id is not None:
+                # cut where the per-step loop would have stopped: the
+                # first column after which every row is finished (the
+                # server clamps later columns to eos)
+                cut = toks.shape[1]
+                fin = finished
+                for j in range(toks.shape[1]):
+                    fin = fin | (toks[:, j] == eos_token_id)
+                    if fin.all():
+                        cut = j + 1
+                        break
+                finished = fin
+                if cut < toks.shape[1]:
+                    # the servers' KV ran past the stop: rewind the
+                    # session's record so a REUSED session sees exactly the
+                    # per-step path's context (a rebuild and replay on its
+                    # next use)
+                    session.rewind_decoded_tail(toks.shape[1] - cut)
+                toks = toks[:, :cut]
+            ids = torch.cat([ids, toks], dim=1)
+            next_ids = toks[:, -1]
+        return ids
+
+    async def _continue_per_step(
+        self, session, ids, next_ids, finished, max_length, eos_token_id
+    ) -> torch.Tensor:
+        """Per-step continuation from mid-generation state (`ids` holds
+        every token so far; `next_ids` is selected but not yet stepped),
+        with the main loop's selection."""
+        while ids.shape[1] < max_length and not (
+            eos_token_id is not None and finished.all()
+        ):
+            out = await session.step(
+                self.embed(next_ids[:, None]), ids=next_ids[:, None]
+            )
+            next_ids, finished = self._greedy_next(
+                self.logits(out[:, -1:])[:, 0], finished, eos_token_id
+            )
+            ids = torch.cat([ids, next_ids[:, None]], dim=1)
+        return ids
 
     @staticmethod
     def _mask_finished(next_ids, finished, eos_token_id):

@@ -40,10 +40,16 @@ stream and retransmits the failed step under its original id; a server
 that already applied it answers from its recorded reply. Any decline falls
 back to reroute + replay.
 
-Not ported yet, and refused with NotImplementedError naming the ROADMAP
-item: `decode_n` and `rewind_decoded_tail` (item 11). The cross-replica
-audits (item 19) are reached only through `ClientConfig.audit_p`, which
-refuses them (client/config.py).
+Server-side multi-step decode (`decode_n`): one RPC to span 0 returns
+[B, n] greedy token ids. A one-span route runs the server's fused or
+stepped loop; a longer push route runs chained decode (span 0 embeds and
+coordinates, the tail applies the head). A declining server raises
+`DecodeNUnsupported`; a chain that failed after committing KV marks the
+session for a rebuild and replay on its next use, as does
+`rewind_decoded_tail` after a call ran past an EOS stop.
+
+The cross-replica audits (ROADMAP item 19) are reached only through
+`ClientConfig.audit_p`, which refuses them (client/config.py).
 """
 
 from __future__ import annotations
@@ -111,20 +117,10 @@ env.declare(
 # a process's sessions share one fair-share bucket server-side
 _PROCESS_CLIENT_ID = f"cli-{uuid.uuid4().hex[:8]}"
 
-# methods of the JAX session this port lacks -> (what they ask for,
-# ROADMAP Queue 1 item)
-_UNPORTED = {
-    "decode_n": ("server-side multi-step decode", "11"),
-    "rewind_decoded_tail": ("server-side decode with an EOS rewind", "11"),
-}
-
-
-def _unported(name: str) -> NotImplementedError:
-    what, item = _UNPORTED[name]
-    return NotImplementedError(
-        f"{name} asks for {what}, which the port's client does not have yet "
-        f"(ROADMAP Queue 1 item {item})"
-    )
+class DecodeNUnsupported(RuntimeError):
+    """The server cannot run server-side multi-step decode for this session
+    (no client params, a sub-span route, a declined chain). Not a failure:
+    the caller falls back to per-step decoding without banning the peer."""
 
 
 def _raise_if_session_lost(resp_meta: dict) -> None:
@@ -280,6 +276,10 @@ class InferenceSession:
         self._history: list[torch.Tensor] = []
         self._step_counter = 0
         self.position = 0
+        # a dirty decode_n decline or an EOS rewind left the servers' KV
+        # ahead of the history: rebuild and replay before the next use
+        self._needs_rebuild = False
+        self._warned_no_embed = False
         # per-step timing rows: per-span compute ms and the wall ms
         self.timings: list[dict] = []
 
@@ -533,57 +533,87 @@ class InferenceSession:
         output, f32, on hidden's device (or (output, keep) for pruned tree
         steps, keep [B, K] numpy or None)."""
         hidden = torch.as_tensor(hidden)
-        attempt = 0
+
+        async def attempt(resume):
+            if prune is not None or accept_per_span is not None:
+                return await self._step_pruned(
+                    hidden, tree_mask, depths, prune, accept_per_span
+                )
+            send_hidden, skip, step_id = hidden, None, None
+            if resume is not None:
+                # retransmit the exact failed step: the same id (servers
+                # that applied it answer from the recorded reply) and the
+                # same prefix skip (the same suffix), with no fresh probe
+                step_id, skip = resume
+                if skip:
+                    send_hidden = hidden[:, skip:]
+            elif (
+                # shared-prefix fast path: on the session's FIRST committed
+                # prefill, probe the chain's pools and ship only the
+                # uncached suffix. The output covers only the suffix;
+                # callers consume the last position, which the probe's cap
+                # always keeps
+                self.prefix_cache
+                and commit
+                and tree_mask is None
+                and ids is not None
+                and self.position == 0
+                and hidden.shape[1] > 1
+            ):
+                skip = await self._probe_prefix(
+                    [[int(t) for t in row]
+                     for row in torch.as_tensor(ids).tolist()]
+                )
+                if skip:
+                    send_hidden = hidden[:, skip:]
+            out = await self._step_once(
+                send_hidden, commit, commit_lens, tree_mask, depths,
+                accept, rows, prefix_skip=skip, step_id=step_id,
+            )
+            if commit and tree_mask is None:
+                if ids is not None and self.embed_fn is not None:
+                    for i, row in enumerate(torch.as_tensor(ids).tolist()):
+                        self._id_rows[i].extend(int(t) for t in row)
+                else:
+                    self._history.append(hidden)
+                self.position += hidden.shape[1]
+                await self._maybe_replicate()
+            return out
+
+        def rerouted():
+            # the replay committed every accepted token on the fresh
+            # chain, whose speculative window is empty: a carried accept
+            # is stale
+            nonlocal accept, accept_per_span
+            accept = None
+            accept_per_span = None
+
+        return await self._with_recovery(
+            "step", attempt,
+            # a pruned chain's per-span accepts are not retransmitted
+            can_resume=lambda: prune is None and accept_per_span is None,
+            rerouted=rerouted,
+        )
+
+    async def _with_recovery(
+        self, what: str, attempt, can_resume=None, rerouted=None
+    ):
+        """Run `attempt(resume)` until it returns, through the session's
+        recovery: a pending rebuild first; an overload shed waits out the
+        peer's retry hint (jittered) and reroutes, on its own budget; a
+        wire failure tries a reconnect-resume (unless `can_resume()` says
+        no), then a reroute and replay, on `max_retries`. `resume` is the
+        `_last_sent` (step id, prefix skip) to retransmit after a resume,
+        else None. `rerouted()` runs after each reroute the loop makes."""
+        attempts = 0
         overload_waits = 0
-        resume_step = None  # (step_id, skip): retransmit after a resume
+        resume = None
         while True:
             try:
-                if prune is not None or accept_per_span is not None:
-                    return await self._step_pruned(
-                        hidden, tree_mask, depths, prune, accept_per_span
-                    )
-                send_hidden, skip, step_id = hidden, None, None
-                if resume_step is not None:
-                    # retransmit the exact failed step: the same id
-                    # (servers that applied it answer from the recorded
-                    # reply) and the same prefix skip (the same suffix),
-                    # with no fresh probe
-                    step_id, skip = resume_step
-                    resume_step = None
-                    if skip:
-                        send_hidden = hidden[:, skip:]
-                elif (
-                    # shared-prefix fast path: on the session's FIRST
-                    # committed prefill, probe the chain's pools and ship
-                    # only the uncached suffix. The output covers only the
-                    # suffix; callers consume the last position, which the
-                    # probe's cap always keeps
-                    self.prefix_cache
-                    and commit
-                    and tree_mask is None
-                    and ids is not None
-                    and self.position == 0
-                    and hidden.shape[1] > 1
-                ):
-                    skip = await self._probe_prefix(
-                        [[int(t) for t in row]
-                         for row in torch.as_tensor(ids).tolist()]
-                    )
-                    if skip:
-                        send_hidden = hidden[:, skip:]
-                out = await self._step_once(
-                    send_hidden, commit, commit_lens, tree_mask, depths,
-                    accept, rows, prefix_skip=skip, step_id=step_id,
-                )
-                if commit and tree_mask is None:
-                    if ids is not None and self.embed_fn is not None:
-                        for i, row in enumerate(torch.as_tensor(ids).tolist()):
-                            self._id_rows[i].extend(int(t) for t in row)
-                    else:
-                        self._history.append(hidden)
-                    self.position += hidden.shape[1]
-                    await self._maybe_replicate()
-                return out
+                if self._needs_rebuild:
+                    await self._recover()
+                last, resume = resume, None
+                return await attempt(last)
             except OverloadedError as e:
                 # retriable shed: the peer told us to go elsewhere, not that
                 # it is broken; honor its retry_after hint, then reroute
@@ -593,32 +623,31 @@ class InferenceSession:
                 wait_s = min((e.retry_after_ms or 500) / 1000.0, 5.0)
                 wait_s *= random.uniform(0.75, 1.25)
                 logger.info(
-                    "step shed by overloaded server (%s); rerouting in "
+                    "%s shed by overloaded server (%s); rerouting in "
                     "%.2fs (shed %d/%d)",
-                    e, wait_s, overload_waits, self.overload_retries,
+                    what, e, wait_s, overload_waits, self.overload_retries,
                 )
                 await asyncio.sleep(wait_s)
                 try:
                     await self._recover()
-                    # the replay committed every accepted token on the
-                    # fresh chain, whose speculative window is empty: a
-                    # carried accept is stale
-                    accept = None
-                    accept_per_span = None
+                    if rerouted is not None:
+                        rerouted()
                 except (
                     RpcError, OSError, asyncio.TimeoutError,
                     MissingBlocksError,
                 ) as e2:
                     logger.warning("recovery after shed failed: %s", e2)
             except (RpcError, OSError, asyncio.TimeoutError) as e:
-                attempt += 1
-                if attempt > self.max_retries:
+                attempts += 1
+                if attempts > self.max_retries:
                     raise
                 if (
                     self.resume
+                    and (can_resume is None or can_resume())
                     and self._last_sent is not None
-                    and prune is None
-                    and accept_per_span is None
+                    # a call that left spans ahead of the history (a dirty
+                    # decode_n decline) must rebuild and replay
+                    and not self._needs_rebuild
                     # resume would retransmit to the SAME peer whose
                     # output an integrity check just rejected, and its
                     # at-most-once dedup would replay the recorded reply:
@@ -626,29 +655,32 @@ class InferenceSession:
                     and not isinstance(e, IntegrityError)
                 ):
                     # cheap path first: re-attach the lease-parked sessions
-                    # on fresh streams and retransmit the failed step under
+                    # on fresh streams and retransmit the failed call under
                     # its original id: no KV is rebuilt, no token replayed
+                    # (a server whose decode_n died mid-commit is kv_dirty:
+                    # its park, and so this resume, is refused)
                     last = self._last_sent
                     if await self._try_resume():
-                        resume_step = last
+                        resume = last
                         logger.info(
-                            "step failed (%s); resumed session, "
-                            "retransmitting step %d", e, last[0],
+                            "%s failed (%s); resumed session, "
+                            "retransmitting step %d", what, e, last[0],
                         )
                         continue
                 logger.warning(
-                    "step failed (%s); re-routing (attempt %d)", e, attempt
+                    "%s failed (%s); re-routing (attempt %d)",
+                    what, e, attempts,
                 )
                 try:
                     await self._recover()
-                    accept = None
-                    accept_per_span = None
+                    if rerouted is not None:
+                        rerouted()
                 except (
                     RpcError, OSError, asyncio.TimeoutError,
                     MissingBlocksError,
                 ) as e2:
                     logger.warning("recovery attempt failed: %s", e2)
-                    await asyncio.sleep(min(0.2 * attempt, 2.0))
+                    await asyncio.sleep(min(0.2 * attempts, 2.0))
 
     def _note_spans_ok(self) -> None:
         """A full step succeeded through every span: clear any ban history
@@ -995,8 +1027,165 @@ class InferenceSession:
         for i, row in enumerate(rows):
             self._id_rows[i].extend(int(t) for t in row)
 
-    async def decode_n(self, *args, **kwargs):
-        raise _unported("decode_n")
+    async def decode_n(
+        self,
+        ids,  # [B] int: the input token of the first step
+        n: int,
+        eos_token_id: int | None = None,
+        finished=None,  # [B] bool rows already at EOS
+        head_dtype: str | None = None,  # the client's lm_head dtype
+        # ("float32", "bfloat16"); servers decline on a mismatch so the
+        # logits stay those of the per-step path
+    ) -> np.ndarray:
+        """Server-side multi-step greedy decode: one RPC returns [B, n]
+        token ids (int64 numpy). A one-span route runs the server's fused
+        or stepped loop; a longer route runs CHAINED decode: span 0 embeds
+        and coordinates, hidden states hop server to server, the tail span
+        applies the head and pushes each next id back to span 0, which
+        replies all n ids at once. Raises DecodeNUnsupported when the
+        server declines, so the caller can fall back to per-step decoding.
+
+        The servers write n tokens of KV (the input token plus the first
+        n-1 selected ones), so the position advances by n and those ids
+        enter the replay history.
+
+        Exactness caveat: a call whose context CROSSES
+        BBTPU_PAGED_MIN_CONTEXT runs one attention route for the whole
+        call where the per-step path would switch mid-way; the routes
+        agree to ~1e-5, so only an exact argmax tie at the crossing could
+        differ (runtime/executor.py `decode_n`)."""
+        if self.embed_fn is None and not self._warned_no_embed:
+            # ids recorded without an embed_fn cannot be replayed: a later
+            # transport failure becomes a RuntimeError in _recover
+            self._warned_no_embed = True
+            logger.warning(
+                "decode_n on a session without embed_fn: the session loses "
+                "failure recovery (id history cannot be re-embedded); use "
+                "model.inference_session() for recoverable decode"
+            )
+        ids = np.asarray(ids).reshape(-1).astype(np.int32)
+
+        async def attempt(resume):
+            # every reroute may pick a route decode_n cannot use
+            self._check_decode_n_route()
+            return await self._decode_n_once(
+                ids, n, eos_token_id, finished, head_dtype,
+                step_id=None if resume is None else resume[0],
+            )
+
+        toks = await self._with_recovery("decode_n", attempt)
+        # the KV now holds [input, toks[:, :-1]] per row: the replay history
+        written = np.concatenate([ids[:, None], toks[:, :-1]], axis=1)
+        for i, row in enumerate(written):
+            self._id_rows[i].extend(int(t) for t in row)
+        self.position += n
+        await self._maybe_replicate()
+        return toks
+
+    def _check_decode_n_route(self) -> None:
+        """decode_n needs a route over the whole model: span 0 embeds (it
+        enters at block 0) and the tail applies the head (it ends at the
+        last block). A longer route chains through server-to-server
+        push."""
+        if not self._spans:
+            return  # a closed chain surfaces as RpcError in _decode_n_once
+        if (
+            self._spans[0].span.start != 0
+            or self._spans[-1].span.end != self.manager.num_blocks
+        ):
+            raise DecodeNUnsupported("route does not cover the whole model")
+        if len(self._spans) > 1 and not self.use_push:
+            raise DecodeNUnsupported(
+                "chained decode_n needs push transport (use_push=True)"
+            )
+
+    async def _decode_n_once(
+        self, ids, n, eos_token_id, finished, head_dtype=None, step_id=None
+    ) -> np.ndarray:
+        if not self._spans:
+            raise RpcError("session chain is closed (recovery pending)")
+        if step_id is None:
+            step_id = self._step_counter
+            self._step_counter += 1
+        # for reconnect-resume: a retransmit reuses this exact id, so a
+        # coordinator that finished the call answers from its record
+        self._last_sent = (step_id, None)
+        meta = {
+            "step": step_id,
+            "decode_n": int(n),
+            "reply": "tensor",
+            # the client's own receive budget below: past it the client
+            # re-routes, so any server work left is waste
+            "deadline_s": 2 * self.step_timeout + float(n),
+        }
+        if eos_token_id is not None:
+            meta["eos_token_id"] = int(eos_token_id)
+        if finished is not None:
+            meta["finished"] = np.asarray(finished, dtype=bool).tolist()
+        if head_dtype is not None:
+            meta["head_dtype"] = head_dtype
+        if len(self._spans) > 1:
+            # chained decode: span 0 coordinates over the downstream hops
+            # (the per-step push route's wire shape)
+            meta["route"] = [
+                {
+                    "host": s.span.server_info.host,
+                    "port": s.span.server_info.port,
+                    "session_id": s.session_id,
+                }
+                for s in self._spans[1:]
+            ]
+        span_sess = self._spans[0]
+        t_start = time.perf_counter()
+        try:
+            await span_sess.stream.send(meta, [torch.from_numpy(ids)])
+            # one RPC covers n whole-model steps; chained routes also pay
+            # per-token server-to-server hops: two step timeouts plus a
+            # second a token, so a healthy coordinator is never banned
+            item = await asyncio.wait_for(
+                span_sess.stream.recv(), 2 * self.step_timeout + float(n)
+            )
+        except OverloadedError as e:
+            self._note_shed_exc(e, span_sess.span.peer_id)
+            raise
+        except (RpcError, OSError, asyncio.TimeoutError):
+            self.manager.ban_peer(span_sess.span.peer_id)
+            raise
+        if item is None:
+            self.manager.ban_peer(span_sess.span.peer_id)
+            raise RpcError("span closed mid-session")
+        resp_meta, resp_tensors = item
+        _raise_if_session_lost(resp_meta)
+        self._raise_if_shed(resp_meta, span_sess.span.peer_id)
+        if resp_meta.get("decode_n_unsupported"):
+            if resp_meta.get("dirty"):
+                # a chained call failed mid-way: spans hold extra KV past
+                # the committed history; a rebuild and replay on the
+                # session's next use restores it
+                self._needs_rebuild = True
+            if resp_meta.get("transient"):
+                # a span died mid-chain (not a capability decline): a wire
+                # error, so the retry loop rebuilds the route, replays and
+                # RETRIES chained decode
+                raise RpcError(
+                    resp_meta.get("reason") or "chained decode_n failed"
+                )
+            raise DecodeNUnsupported(
+                resp_meta.get("reason")
+                or "server declined decode_n for this session"
+            )
+        self._note_spans_ok()
+        self.timings.append(
+            {
+                "step": step_id,
+                "tokens": n,
+                "decode_n": True,
+                "span_compute_ms": [resp_meta.get("t_compute_ms")],
+                "span_dispatch_ms": [resp_meta.get("t_dispatch_ms")],
+                "total_ms": (time.perf_counter() - t_start) * 1000.0,
+            }
+        )
+        return torch.as_tensor(resp_tensors[0]).numpy().astype(np.int64)
 
     async def send_accept(
         self, accept: list, per_span: list | None = None
@@ -1023,8 +1212,25 @@ class InferenceSession:
             if item is None:
                 raise RpcError(f"span {i} closed during accept")
 
-    def rewind_decoded_tail(self, *args, **kwargs):
-        raise _unported("rewind_decoded_tail")
+    def rewind_decoded_tail(self, n_drop: int) -> None:
+        """Drop the last `n_drop` tokens of every row from the committed
+        history after a decode_n call ran past an EOS stop. The servers'
+        KV still holds them, so the chain is marked for a rebuild and
+        replay on the session's next use, which restores exactly the
+        rewound context. Needs embed_fn (the replay re-embeds ids)."""
+        if self.embed_fn is None:
+            raise ValueError(
+                "rewind_decoded_tail needs a session with embed_fn to "
+                "replay the rewound history"
+            )
+        if n_drop <= 0:
+            return
+        for row in self._id_rows:
+            del row[len(row) - n_drop:]
+        self.position -= n_drop
+        # the incremental chains cover tokens that no longer exist
+        self._chains_by_ps.clear()
+        self._needs_rebuild = True
 
     # -------------------------------------------------------------- recovery
     async def _try_resume(self) -> bool:
@@ -1114,6 +1320,9 @@ class InferenceSession:
             try:
                 await self._recover_once()
                 ledger.recovery("client.reroute_replay")
+                # the replay rebuilt the full history: a pending rebuild
+                # (dirty decode_n decline, EOS rewind) is satisfied
+                self._needs_rebuild = False
                 return
             except (
                 RpcError, OSError, asyncio.TimeoutError, MissingBlocksError,

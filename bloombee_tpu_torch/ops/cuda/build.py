@@ -81,6 +81,11 @@ def _output(name: str) -> pathlib.Path:
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
+def sources() -> list[str]:
+    """The name of every kernel source, `csrc/<name>.cu`."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
 def build(names) -> dict[str, str]:
     """Compile every named source whose library is missing, all `nvcc`s at
     once; returns each built source's compiler log (ptxas register and

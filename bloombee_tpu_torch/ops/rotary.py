@@ -8,6 +8,21 @@ from __future__ import annotations
 
 import torch
 
+# On the CPU, torch's first cos in a process, when it is split over several
+# intra-op threads, is now and then up to ~1.5e-4 off; later calls are exact,
+# and so is a first call on one thread (`scripts/torch_cpu_cos_first_call.py`
+# reproduces it with torch alone). The tables are built after one-element
+# (single-threaded) cos and sin calls, so every process gets the same ones.
+_cpu_trig_settled = False
+
+
+def _settle_cpu_trig() -> None:
+    global _cpu_trig_settled
+    if not _cpu_trig_settled:
+        torch.cos(torch.zeros(1))
+        torch.sin(torch.zeros(1))
+        _cpu_trig_settled = True
+
 
 def rotary_cos_sin(
     positions: torch.Tensor,  # [..., T] integer absolute positions
@@ -16,6 +31,8 @@ def rotary_cos_sin(
     dtype: torch.dtype = torch.float32,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """cos/sin tables for the given absolute positions; fp32 math like HF."""
+    if positions.device.type == "cpu":
+        _settle_cpu_trig()
     exponent = (
         torch.arange(0, head_dim, 2, dtype=torch.float32, device=positions.device)
         / head_dim

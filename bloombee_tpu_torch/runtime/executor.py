@@ -413,6 +413,89 @@ class SpanExecutor:
         )
         return out[0, :r], combined
 
+    def decode_n(
+        self,
+        handle: CacheHandle,
+        ids,  # [B] int: the input token of the first step
+        n: int,
+        client_params: dict,  # embed + norm + lm_head (the client's trio)
+        eos_token_id: int | None = None,
+        finished=None,  # [B] bool rows already at EOS
+    ) -> torch.Tensor:
+        """Run n greedy decode steps on the device and return the [B, n]
+        selected token ids as a device tensor (the caller fetches it off
+        the compute queue). `runtime/decode_loop.py` runs embed -> span ->
+        norm + head -> argmax per step over plans built here, all before
+        the first step. Valid only when this span is the whole model (the
+        server checks) over a dense arena.
+
+        The n steps' slots are committed up front. Each step's plan is the
+        per-step path's (batch bucket, page bucket of its own length); the
+        route is fixed for the call from the STARTING length's page bucket
+        (the bucket the per-step path sees on the call's first step), so a
+        call that starts below BBTPU_PAGED_MIN_CONTEXT stays dense like its
+        per-step equivalent. A call that crosses the threshold keeps one
+        route where the per-step path would switch mid-way; the routes
+        agree to ~1e-5, so only an exact argmax tie at the crossing could
+        differ (the JAX executor's caveat)."""
+        if self.manager.quant is not None:
+            raise ValueError("decode_n + quantized KV arena not supported")
+        from bloombee_tpu_torch.runtime.decode_loop import (
+            StepPlan,
+            decode_loop_impl,
+        )
+
+        ids = torch.as_tensor(np.asarray(ids)).reshape(-1)
+        b = int(ids.shape[0])
+        bb = next_pow2(b)
+        lens_now = self.manager.context_lens(handle)
+        pb_start = self._page_bucket(lens_now + 1)
+        use_paged = bool(
+            self.paged_supported
+            and pb_start * self.page_size >= self.paged_min_context
+        )
+        oob = self.manager.capacity_tokens
+        parts = []
+        for _ in range(int(n)):
+            slots = self.manager.write_slots(handle, 1, commit=True)
+            total_lens = self.manager.context_lens(handle)
+            pb = self._page_bucket(total_lens)
+            slots_pad = np.full((bb,), oob, dtype=np.int32)
+            slots_pad[:b] = slots
+            pt_pad = np.zeros((bb, pb), dtype=np.int32)
+            pt_pad[:b] = self.manager.page_table(handle, pb)
+            lens_pad = np.zeros((bb,), dtype=np.int32)
+            lens_pad[:b] = total_lens
+            pos_pad = np.zeros((bb, 1), dtype=np.int32)
+            pos_pad[:b, 0] = total_lens - 1
+            rows, dst = write_plan(slots_pad, oob, "cpu")
+            parts.extend(
+                (pt_pad, pos_pad, lens_pad, rows.numpy(), dst.numpy())
+            )
+        views = self._upload(*parts) if parts else []
+        plans = []
+        for k in range(0, len(views), 5):
+            pt, pos, lens, rows, dst = views[k : k + 5]
+            plans.append(StepPlan((rows.long(), dst.long()), pt, pos, lens))
+        ids_pad = torch.zeros((bb,), dtype=torch.int64)
+        ids_pad[:b] = ids.to(torch.int64)
+        fin_pad = torch.ones((bb,), dtype=torch.bool)
+        fin_pad[:b] = (
+            torch.as_tensor(np.asarray(finished, dtype=bool))
+            if finished is not None else False
+        )
+        arena = self.manager.arena
+        toks = decode_loop_impl(
+            client_params, self.params, arena["k"], arena["v"],
+            ids_pad.to(self.device), fin_pad.to(self.device), plans,
+            self._layer_active(None),
+            spec=self.spec, page_size=self.page_size,
+            eos_id=-1 if eos_token_id is None else int(eos_token_id),
+            compute_dtype=self.compute_dtype, windows=self.windows,
+            use_paged=use_paged, rows=b,
+        )
+        return toks[:b]
+
     def fetch(self, out) -> torch.Tensor:
         """Copy a fetch=False result to the host (a list of per-chunk
         results concatenates along the token axis)."""

@@ -51,23 +51,36 @@ and JAX servers work with it:
   resumable (`resume: session_id` on a fresh stream) for one lease; with
   leases on, every step's reply is recorded before delivery, so a step
   retransmitted after a resume is answered, not applied twice;
+- server-side multi-step decode (`decode_n` step meta, up to
+  `decode_n_max` tokens): one RPC returns n greedy token ids. FUSED on a
+  whole-model span over a dense arena (`executor.decode_n`: every step's
+  plan built before one device loop); LOCAL STEPPED on a whole-model span
+  the fused loop does not cover (an int4 arena): embed, per-step decode
+  and the head driven from the host; CHAINED when the meta names a
+  `route`: this span embeds and coordinates, each hop's hidden state is
+  pushed server to server (`chain` meta), and the tail span applies the
+  head and pushes the ids back (`chain_ids`, or `chain_error`). A server
+  that cannot serve it declines with `decode_n_unsupported` and a reason;
+  a chain that fails after committing KV declines `dirty`, so the client
+  rebuilds and replays. The embed and head use the checkpoint's
+  `client_params` (given, or loaded from `model_dir` on first use).
 - `drain()`: announce DRAINING, refuse opens and `kv_put`, flush the
-  replication backlog, expire parked leases, wait for live sessions, stop.
+  replication backlog, expire parked leases, wait for live sessions up to
+  `drain_timeout`, stop.
 - `rpc_push`: a step pushed by an upstream server (buffered briefly when it
   races ahead of its session's open). A step whose meta names a `route`
-  pushes its output on to the next hop and acks its own stream.
+  pushes its output on to the next hop and acks its own stream; chained
+  decode_n's control messages go straight to the waiting coordinator.
 - `rpc_info`: the server's counters (the JAX server's batching, prefix,
   replication and lease keys under its names) and its ServerInfo.
 - A background announcer re-declares the span in the registry every
   `announce_period`, with expiration as the liveness signal.
 
-What this server does not serve yet is refused loudly, never ignored: a step
-whose meta asks for chained decode_n (`chain`, `decode_n`) fails its
-session with an error frame naming the key; so does an open asking for a
-LoRA adapter, and the server refuses to start with the neural pruner or
-pruner training (`BBTPU_PRUNER_METHOD=neural`, `BBTPU_PRUNER_TRAIN`: both
-learn by gradient, ROADMAP item 17). The server advertises those features
-as off.
+What this server does not serve yet is refused loudly, never ignored: an
+open asking for a LoRA adapter fails its session with an error frame, and
+the server refuses to start with the neural pruner or pruner training
+(`BBTPU_PRUNER_METHOD=neural`, `BBTPU_PRUNER_TRAIN`: both learn by
+gradient, ROADMAP item 17). The server advertises those features as off.
 
 Two servers in one process on one card share the device's default stream:
 each launches from its own compute thread, the split kernels' counters are
@@ -90,7 +103,9 @@ import torch
 
 from bloombee_tpu_torch.kv.cache_manager import CacheManager
 from bloombee_tpu_torch.kv.quant import QuantSlab, slab_nbytes
+from bloombee_tpu_torch.models.head import embed_impl, norm_head_impl
 from bloombee_tpu_torch.models.spec import ModelSpec
+from bloombee_tpu_torch.ops.cuda import build
 from bloombee_tpu_torch.runtime.executor import (
     SpanExecutor,
     plan_prefill_chunks,
@@ -181,12 +196,9 @@ env.declare(
 # default
 REPL_INFLIGHT = 2
 
-# step-meta keys this server refuses, with what they ask for; a key asks
-# only when its value is truthy
-REFUSED_STEP_KEYS = {
-    "chain": "chained decode_n",
-    "decode_n": "server-side decode_n",
-}
+# per-token budget of a chained decode_n round trip through the
+# downstream spans (the JAX server's chain_step_timeout)
+CHAIN_STEP_TIMEOUT = 120.0
 
 
 class _Session:
@@ -197,6 +209,11 @@ class _Session:
         self.batch_size = batch_size
         self.layers = layers  # relative (l0, l1) within this server's span
         self.push_inbox: asyncio.Queue = asyncio.Queue()
+        # chained decode_n control messages (the tail span's selected ids
+        # or errors) land here straight from rpc_push, not through
+        # push_inbox, whose consumer (the session loop) is blocked inside
+        # the coordinator waiting for exactly these messages
+        self.chain_inbox: asyncio.Queue = asyncio.Queue()
         self.step_tasks: set[asyncio.Task] = set()  # in-flight mb chunks
         self.last_step_at = 0.0
         # per-session timing accumulators (the server half of the
@@ -247,11 +264,27 @@ class _Session:
         # the client's declared skip; until then the session steps solo
         # (the settle mutates the table), after it batches like any other
         self.adoption_settled = False
+        # a stepped decode_n died after committing KV the client was never
+        # told about: resuming would desync, so force a full replay
+        self.kv_dirty = False
 
 
 class SessionKVLost(RuntimeError):
     """The session's sequences no longer hold its KV: the step cannot run
     on a zeroed context, so it fails and the client replays."""
+
+
+class _ChainError(RuntimeError):
+    """A downstream span of a chained decode_n reported failure (pushed
+    back as `chain_error`). `permanent` tells capability declines (the
+    tail has no head parameters, or a dtype mismatch: the same route can
+    never work, the client falls back to per-step decoding) from
+    transient route failures (a span died mid-chain: the client rebuilds,
+    replays and retries chained decode)."""
+
+    def __init__(self, msg: str, permanent: bool = False):
+        super().__init__(msg)
+        self.permanent = permanent
 
 
 @dataclasses.dataclass
@@ -341,6 +374,12 @@ def _spec_entry(session: _Session) -> dict:
     }
 
 
+def _dtype_name(dtype: torch.dtype) -> str:
+    """A torch dtype under the numpy name the JAX client sends as
+    `head_dtype` ("float32", "bfloat16")."""
+    return str(dtype).removeprefix("torch.")
+
+
 def _nbytes(x) -> int:
     if isinstance(x, QuantSlab):
         return slab_nbytes(x)
@@ -392,6 +431,16 @@ class BlockServer:
         session_lease_s: float | None = None,  # park a stream-dead
         # session's KV for this long, resumable by a reconnecting client
         # (None -> BBTPU_SESSION_LEASE_S; 0 = off)
+        drain_timeout: float = 30.0,  # how long drain() waits for live
+        # sessions before stopping under them (they replay elsewhere)
+        client_params: dict | None = None,  # embed/norm/lm_head for the
+        # server-side multi-step decode (decode_n); loaded from model_dir
+        # on first use when omitted
+        decode_n_max: int = 256,  # largest decode_n accepted per RPC (a
+        # bigger n commits n KV slots per row before any compute, so an
+        # unbounded request could exhaust the arena in one call)
+        decode_n_fused: bool = True,  # False sends single-span decode_n
+        # through the stepped loop too (a yardstick for the fused loop)
         device="cuda",
     ):
         if env.get("BBTPU_PRUNER_METHOD") == "neural":
@@ -426,6 +475,7 @@ class BlockServer:
         self.registry = registry
         self.announce_period = announce_period
         self.alloc_timeout = alloc_timeout
+        self.drain_timeout = float(drain_timeout)
         self.public_host = public_host or host
         self.throughput = throughput
         self.inference_rps: float | None = None
@@ -484,6 +534,18 @@ class BlockServer:
                 max_group=self.max_batch, group_hint=self._batch_group_hint
             )
         self.peers = _PeerPool()
+        # server-side multi-step decode (decode_n): the checkpoint's
+        # embed/norm/lm_head trio, loaded from model_dir on first use
+        self.decode_n_max = int(decode_n_max)
+        self.decode_n_fused = bool(decode_n_fused)
+        self._client_params = client_params
+        self._client_params_unavailable = False
+        self._client_params_lock: asyncio.Lock | None = None
+        # decode_n calls answered, those the fused loop ran, and the span
+        # steps they ran here (fused and stepped loops, chained hops)
+        self.decode_n_calls = 0
+        self.decode_n_fused_calls = 0
+        self.decode_n_steps = 0
         # mid-chain draft-tree pruning: the MidLMHead loads lazily from
         # BBTPU_PRUNER_CKPT or the checkpoint's lm_head (model_dir)
         self._pruner_manager = None
@@ -582,17 +644,20 @@ class BlockServer:
             self.model_uid, self.start_block, self.end_block, self.port,
         )
 
-    async def drain(self, timeout: float = 60.0) -> None:
+    async def drain(self, timeout: float | None = None) -> None:
         """Graceful shutdown: announce DRAINING so routing stops starting
         new sessions here, refuse opens and kv_put, flush the standby
         replication backlog (a drained server's sessions then fail over
         with at most the unsealed tail to replay), force-expire parked
         leases (a wedged client never holds the drain), wait for the live
-        sessions until `timeout` seconds have passed, then stop."""
+        sessions until `timeout` seconds (default `drain_timeout`) have
+        passed, then stop."""
         if self._draining:
             return
         self._draining = True
-        deadline = clock.monotonic() + float(timeout)
+        deadline = clock.monotonic() + (
+            self.drain_timeout if timeout is None else float(timeout)
+        )
         logger.info(
             "draining %s: %d in-flight session(s), up to %.0fs",
             self.server_id, len(self._sessions),
@@ -686,7 +751,7 @@ class BlockServer:
             kv_repl=self.manager.repl_supported and not self._draining,
             # features this server does not serve, advertised off
             adapters=None,
-            decode_n_max=0,
+            decode_n_max=self.decode_n_max,
             out_digest=False,
             artifacts=False,
         )
@@ -773,6 +838,14 @@ class BlockServer:
         return report
 
     async def _rpc_info(self, meta: dict, tensors):
+        fused_decline = self._decode_n_ineligible()
+        params_ok = not self._client_params_unavailable and (
+            self._client_params is not None or self.model_dir is not None
+        )
+        whole = (
+            self.start_block == 0
+            and self.end_block == self.spec.num_hidden_layers
+        )
         info = {
             "server_id": self.server_id,
             "server_time": clock.now(),  # NTP-style clock sync anchor
@@ -853,13 +926,27 @@ class BlockServer:
             "repl_lag_pages": self._repl_lag(),
             "failover_replayed_tokens": self.failover_replayed_tokens,
             **lockwatch.counters(),
-            "decode_n": False,
-            "decode_n_fused": False,
-            "decode_n_first": False,
-            "decode_n_last": False,
+            # the decode_n flavors this server serves: decode_n, any
+            # single-span flavor (fused or stepped); decode_n_fused, the
+            # device loop; decode_n_first / _last, the chained roles
+            "decode_n": whole and params_ok,
+            "decode_n_fused": fused_decline is None,
+            "decode_n_first": self.start_block == 0 and params_ok,
+            "decode_n_last": (
+                self.end_block == self.spec.num_hidden_layers and params_ok
+            ),
+            "decode_n_calls": self.decode_n_calls,
+            "decode_n_fused_calls": self.decode_n_fused_calls,
+            "decode_n_steps": self.decode_n_steps,
+            # this process's kernel launches by kernel (`ops/cuda/build.py`
+            # counts; CPU runs launch none): a server in its own process
+            # shows which kernels its steps went through
+            "kernel_launches": dict(build.LAUNCHES),
             "memory": self._memory_report(),
             **self.server_info().to_wire(),
         }
+        if fused_decline is not None:
+            info["decode_n_decline"] = fused_decline
         return info, []
 
     # -------------------------------------------- session-KV replication
@@ -1064,9 +1151,14 @@ class BlockServer:
                         break  # client half-closed: done
                     except (ConnectionClosed, OSError, RpcError) as e:
                         # the stream died under the session. With leases
-                        # on, park and wait for a reconnect instead of
-                        # freeing
-                        if self.session_lease_s <= 0 or self._draining:
+                        # on (and KV not run ahead of the client's
+                        # history), park and wait for a reconnect instead
+                        # of freeing
+                        if (
+                            self.session_lease_s <= 0
+                            or self._draining
+                            or session.kv_dirty
+                        ):
                             raise
                         cur_stream = await self._park_until_resumed(
                             session, e
@@ -1163,6 +1255,8 @@ class BlockServer:
         reason = None
         if session is None:
             reason = "unknown session (lease expired or never parked here)"
+        elif session.kv_dirty:
+            reason = "session KV ran ahead of acked history; replay"
         elif not session.parked:
             # the old stream looks alive from here (half-open not yet
             # detected): the client knows better, so fence it and wait
@@ -1390,14 +1484,25 @@ class BlockServer:
             meta.get("step"), where, self.deadlines_expired,
         )
 
+    @staticmethod
+    def _local_deadline(meta: dict) -> float | None:
+        """meta['deadline_s'] (the relative remaining seconds stamped by
+        the client or shrunk by the previous hop) -> a local monotonic
+        cutoff, or None when the item carries no budget."""
+        budget = meta.get("deadline_s")
+        if budget is None:
+            return None
+        return clock.monotonic() + float(budget)
+
     async def _run_step(
         self, session: _Session, stream: Stream, meta: dict, tensors: list
     ) -> None:
-        for key, what in REFUSED_STEP_KEYS.items():
-            if meta.get(key):
-                raise ValueError(
-                    f"step meta {key!r}: {what} is not served by this server"
-                )
+        if meta.get("chain") is not None:
+            # a pushed hop of a chained decode_n (never from the client
+            # stream): errors go back to the coordinator as chain_error,
+            # not onto our own client's stream
+            await self._run_chain_step(session, meta, tensors)
+            return
         repl = meta.get("kv_repl")
         if repl is not None:
             # session-KV replication control: record the standby and the
@@ -1419,8 +1524,7 @@ class BlockServer:
             return
         # "deadline_s" is the RELATIVE time the client has left; a local
         # monotonic cutoff from arrival
-        budget = meta.get("deadline_s")
-        deadline = None if budget is None else clock.monotonic() + budget
+        deadline = self._local_deadline(meta)
         if deadline is not None and clock.monotonic() > deadline:
             self._note_deadline_expired(meta, "on arrival")
             return
@@ -1456,6 +1560,9 @@ class BlockServer:
             resp = {"step": meta.get("step"), "ack": True}
             self._record_reply(session, meta, resp, [])
             await stream.send(resp)
+            return
+        if meta.get("decode_n"):
+            await self._run_decode_n(session, stream, meta, tensors)
             return
         hidden = tensors[0]  # CPU, in the sender's wire dtype
         tree_mask = depths = None
@@ -1696,6 +1803,562 @@ class BlockServer:
         self.step_dispatches += 1
         self.step_tokens += int(hidden.shape[0]) * int(hidden.shape[1])
         return out, (clock.perf_counter() - t0) * 1000.0
+
+    # ------------------------------------------------ server-side decode_n
+    async def _run_decode_n(
+        self, session: _Session, stream: Stream, meta: dict, tensors: list
+    ) -> None:
+        """Server-side multi-step greedy decode: one RPC returns n token
+        ids, amortizing the client round trip. Three flavors, picked per
+        request:
+
+        - FUSED (no route, a whole-model span over a dense arena): every
+          step's plan built, then one device loop of embed -> span -> head
+          -> select (`executor.decode_n`); the tokens are fetched once.
+        - LOCAL STEPPED (no route, a whole-model span the fused loop does
+          not cover: an int4 arena): the same loop driven per step from
+          the host through the ordinary executor path.
+        - CHAINED (a route): this span embeds and runs its blocks, pushes
+          the hidden state downstream; the LAST span applies the head and
+          pushes the next ids back here; this coordinator replies [B, n]
+          ids after n rounds. The client pays one round trip per n tokens;
+          the per-token hops ride server-to-server links.
+
+        A server that cannot serve it replies decode_n_unsupported with
+        the reason, so the client falls back to per-step decoding without
+        banning the peer."""
+        n = int(meta["decode_n"])
+        route = meta.get("route") or []
+        decline = None
+        if not (1 <= n <= self.decode_n_max):
+            # an unchecked n would let one RPC commit n slots per row
+            decline = (
+                f"decode_n={n} outside the server's accepted range "
+                f"[1, {self.decode_n_max}]"
+            )
+        if decline is None:
+            # every flavor embeds ids here: the session must enter the
+            # model at block 0
+            rel = session.layers or (0, self.end_block - self.start_block)
+            if self.start_block + rel[0] != 0:
+                decline = "session does not enter the model at block 0"
+            elif (
+                not route
+                and self.start_block + rel[1] != self.spec.num_hidden_layers
+            ):
+                decline = (
+                    "single-span decode_n needs the whole model on this "
+                    "server (send a route for chained decode)"
+                )
+        if decline is None:
+            await self._ensure_client_params()
+            if self._client_params is None:
+                decline = "server has no embed/norm/lm_head params"
+        if decline is None:
+            decline = self._head_dtype_mismatch(meta, "server")
+        if decline is None:
+            try:
+                ids, finished = self._decode_n_inputs(session, meta, tensors)
+            except ValueError as e:
+                decline = str(e)
+        if decline is not None:
+            # the reason rides the reply so an operator sees why a client
+            # fell back to per-step decoding
+            logger.warning("decode_n declined: %s", decline)
+            await stream.send(
+                {
+                    "step": meta.get("step"),
+                    "decode_n_unsupported": True,
+                    "reason": decline,
+                }
+            )
+            return
+        self.decode_n_calls += 1
+        if route or self._decode_n_ineligible(session) is not None:
+            await self._run_decode_n_stepped(
+                session, stream, meta, ids, finished, route
+            )
+            return
+        self.decode_n_fused_calls += 1
+        await self._run_decode_n_fused(session, stream, meta, ids, finished)
+
+    def _head_dtype_mismatch(self, meta: dict, role: str) -> str | None:
+        """A client that loaded its head in another dtype would get other
+        logits from this server's head than from its own per-step path."""
+        want = meta.get("head_dtype")
+        have = _dtype_name(self._client_params["lm_head"].dtype)
+        if want is not None and want != have:
+            return f"head dtype mismatch: client {want} vs {role} {have}"
+        return None
+
+    def _decode_n_inputs(self, session: _Session, meta: dict, tensors: list):
+        """The call's first input ids [B] (int64, host) and the rows
+        already at EOS [B] (bool numpy), checked before anything commits.
+        Every id the loop embeds must index the table: on the card an
+        out-of-range gather is a device assert that ends the process's
+        CUDA context, every session on it included. Raises ValueError
+        with the reason."""
+        if not tensors:
+            raise ValueError("decode_n carries no input ids")
+        ids = torch.as_tensor(tensors[0]).reshape(-1).to(torch.int64)
+        b = session.handle.batch_size
+        if ids.shape[0] != b:
+            raise ValueError(
+                f"decode_n ids carry batch {ids.shape[0]} != {b} cache rows"
+            )
+        vocab = int(self._client_params["embed"].shape[0])
+        if ids.numel() and not (0 <= int(ids.min()) and int(ids.max()) < vocab):
+            raise ValueError(
+                f"decode_n ids outside the vocabulary [0, {vocab})"
+            )
+        eos = meta.get("eos_token_id")
+        if eos is not None and not (0 <= int(eos) < vocab):
+            # the EOS clamp feeds eos back in as the next input id
+            raise ValueError(
+                f"eos_token_id {eos} outside the vocabulary [0, {vocab})"
+            )
+        finished = np.zeros((b,), dtype=bool)
+        if meta.get("finished") is not None:
+            finished = np.asarray(meta["finished"], dtype=bool).reshape(-1)
+            if finished.shape[0] != b:
+                raise ValueError(
+                    f"decode_n finished carries {finished.shape[0]} rows "
+                    f"!= {b} cache rows"
+                )
+        return ids, finished
+
+    async def _run_decode_n_fused(
+        self, session: _Session, stream: Stream, meta: dict,
+        ids: torch.Tensor, finished: np.ndarray,
+    ) -> None:
+        n = int(meta["decode_n"])
+        eos = meta.get("eos_token_id")
+
+        def _dispatch():
+            if not self.manager.epoch_valid(session.handle):
+                raise SessionKVLost("session cache lost: replay")
+            session.last_step_at = clock.monotonic()
+            t0 = clock.perf_counter()
+            out = self.executor.decode_n(
+                session.handle, ids, n, self._client_params,
+                eos_token_id=eos, finished=finished,
+            )
+            self.decode_n_steps += n
+            return out, (clock.perf_counter() - t0) * 1000.0
+
+        try:
+            out_dev, t_dispatch_ms = await self.compute.submit(
+                PRIORITY_INFERENCE, _dispatch,
+                deadline=self._local_deadline(meta),
+            )
+        except DeadlineExpired:
+            self._note_deadline_expired(meta, "while queued")
+            return
+        t0 = clock.perf_counter()
+        toks = await asyncio.to_thread(
+            lambda: out_dev.cpu().to(torch.int32)
+        )
+        t_fetch_ms = (clock.perf_counter() - t0) * 1000.0
+        session.n_steps += n
+        session.sum_tokens += int(ids.shape[0]) * n
+        session.sum_dispatch_ms += t_dispatch_ms
+        session.sum_fetch_ms += t_fetch_ms
+        resp = {
+            "step": meta.get("step"),
+            "t_compute_ms": t_dispatch_ms + t_fetch_ms,
+            "t_dispatch_ms": t_dispatch_ms,
+            "t_fetch_ms": t_fetch_ms,
+        }
+        # the loop committed n slots per row: record before delivery so a
+        # retry after a resume resends these tokens instead of decoding
+        # (and committing) n more
+        self._record_reply(session, meta, resp, [toks])
+        await stream.send(resp, [toks])
+
+    async def _run_decode_n_stepped(
+        self, session: _Session, stream: Stream, meta: dict,
+        ids: torch.Tensor, finished: np.ndarray, route: list,
+    ) -> None:
+        """The host-driven decode_n loop (the LOCAL STEPPED and CHAINED
+        flavors). Each round: embed the current ids, run this span's
+        ordinary per-step decode, then apply the head here (no route) or
+        push the hidden state downstream and wait for the tail's ids. EOS
+        masking happens here, as in the client's per-step loop.
+
+        Failure contract: once any KV was committed in this call, spans
+        hold extra tokens, so the decline carries dirty=True and the
+        client rebuilds and replays before it goes on."""
+        n = int(meta["decode_n"])
+        ids = ids.numpy()
+        b = int(ids.shape[0])
+        eos = meta.get("eos_token_id")
+        cid = uuid.uuid4().hex[:12]
+        # drop stale control messages of an earlier timed-out chain
+        while not session.chain_inbox.empty():
+            session.chain_inbox.get_nowait()
+        toks = np.zeros((b, n), dtype=np.int32)
+        committed = 0
+        t_start = clock.perf_counter()
+        t_dispatch_sum = 0.0
+        # the whole call's budget: one cold-start allowance plus 1 s a
+        # token, under the client's receive budget (2 x step_timeout + n),
+        # so the server always answers first; never past the client's own
+        t_deadline = clock.monotonic() + CHAIN_STEP_TIMEOUT + float(n)
+        budget = meta.get("deadline_s")
+        if budget is not None:
+            t_deadline = min(t_deadline, clock.monotonic() + float(budget))
+        try:
+            for i in range(n):
+                if clock.monotonic() > t_deadline:
+                    raise _ChainError(
+                        f"chain exceeded its {CHAIN_STEP_TIMEOUT:.0f}s"
+                        f"+{n}s budget after {i}/{n} tokens"
+                    )
+
+                def _dispatch(ids_now=ids):
+                    if not self.manager.epoch_valid(session.handle):
+                        raise SessionKVLost("session cache lost: replay")
+                    session.last_step_at = clock.monotonic()
+                    t0 = clock.perf_counter()
+                    out = self.executor.decode(
+                        session.handle, self._embed_ids(ids_now),
+                        commit=True, layers=session.layers, fetch=False,
+                    )
+                    self.decode_n_steps += 1
+                    return out, (clock.perf_counter() - t0) * 1000.0
+
+                out_dev, dt_ms = await self.compute.submit(
+                    PRIORITY_INFERENCE, _dispatch
+                )
+                committed += 1
+                t_dispatch_sum += dt_ms
+                if route:
+                    out = await asyncio.to_thread(self._fetch, out_dev)
+                    chain = {
+                        "origin": {
+                            "host": self.public_host,
+                            "port": self.port,
+                            "session_id": session.id,
+                        },
+                        "cid": cid,
+                        "i": i,
+                    }
+                    await self._push_hop(
+                        route, chain, meta.get("step"),
+                        meta.get("head_dtype"), out,
+                        deadline_s=t_deadline - clock.monotonic(),
+                    )
+                    nxt = await self._await_chain_ids(
+                        session, cid, i, t_deadline
+                    )
+                else:
+                    nxt = await self.compute.submit(
+                        PRIORITY_INFERENCE, self._select_head, out_dev
+                    )
+                # EOS masking: the client's per-step `_mask_finished`
+                if eos is not None:
+                    nxt = np.where(finished, eos, nxt)
+                    finished = finished | (nxt == eos)
+                toks[:, i] = nxt
+                ids = nxt.astype(np.int64)
+        except Exception as e:
+            if isinstance(e, SessionKVLost):
+                raise
+            # committed KV the client was never told about makes a parked
+            # resume unsound: if the decline below cannot be delivered,
+            # the park path sees kv_dirty and the client replays in full
+            session.kv_dirty = committed > 0
+            logger.warning(
+                "stepped decode_n failed after %d/%d committed steps: %s",
+                committed, n, e,
+            )
+            resp = {
+                "step": meta.get("step"),
+                "decode_n_unsupported": True,
+                "reason": f"{type(e).__name__}: {e}",
+                # committed KV ran ahead of the client's history: it must
+                # rebuild and replay before it goes on
+                "dirty": committed > 0,
+                # a span that died mid-chain is worth a rebuild and a retry
+                # of chained decode; capability declines are not
+                "transient": not getattr(e, "permanent", False),
+            }
+            # KV was committed: like any applied step, the reply is
+            # recorded before delivery, so a retransmit after a resume
+            # gets this dirty decline back instead of a second call on top
+            # of the extra tokens
+            self._record_reply(session, meta, resp, [])
+            await stream.send(resp)
+            # the decline reached the client, which rebuilds and replays:
+            # the extra KV no longer blocks a later park
+            session.kv_dirty = False
+            return
+        total_ms = (clock.perf_counter() - t_start) * 1000.0
+        session.n_steps += n
+        session.sum_tokens += b * n
+        session.sum_dispatch_ms += t_dispatch_sum
+        session.sum_fetch_ms += max(total_ms - t_dispatch_sum, 0.0)
+        resp = {
+            "step": meta.get("step"),
+            "t_compute_ms": total_ms,
+            "t_dispatch_ms": t_dispatch_sum,
+            "t_fetch_ms": max(total_ms - t_dispatch_sum, 0.0),
+        }
+        toks_t = torch.from_numpy(toks)
+        self._record_reply(session, meta, resp, [toks_t])
+        await stream.send(resp, [toks_t])
+
+    async def _push_hop(
+        self, route: list, chain: dict, step, head_dtype, out,
+        deadline_s: float | None = None,
+    ) -> None:
+        """Push one chained-decode hidden state to the next hop (the
+        coordinator's and the middle spans' one copy of the hop's wire
+        format, the JAX server's)."""
+        nxt_hop = route[0]
+        push_meta = {
+            "session_id": nxt_hop["session_id"],
+            "step": step,
+            "commit": True,
+            "chain": chain,
+            "route": route[1:],
+        }
+        if head_dtype is not None:
+            push_meta["head_dtype"] = head_dtype
+        if deadline_s is not None:
+            push_meta["deadline_s"] = deadline_s
+        conn = await self.peers.get(nxt_hop["host"], nxt_hop["port"])
+        async with self.peers.limiter(
+            nxt_hop["host"], nxt_hop["port"]
+        ).slot():
+            await conn.push("rpc_push", push_meta, [out])
+
+    async def _await_chain_ids(
+        self, session: _Session, cid: str, i: int, t_deadline: float
+    ) -> np.ndarray:
+        """Wait for the tail span's selected ids of chain step (cid, i);
+        stale messages of earlier chains are dropped, errors raise. Bounded
+        by the chain's deadline, so the call always answers inside the
+        client's receive budget."""
+        while True:
+            remaining = t_deadline - clock.monotonic()
+            if remaining <= 0:
+                raise asyncio.TimeoutError("chain deadline exhausted")
+            msg_meta, msg_tensors = await asyncio.wait_for(
+                session.chain_inbox.get(), remaining
+            )
+            if msg_meta.get("cid") != cid:
+                continue  # a stale chain
+            if msg_meta.get("chain_error"):
+                raise _ChainError(
+                    msg_meta["chain_error"],
+                    permanent=bool(msg_meta.get("permanent")),
+                )
+            if int(msg_meta.get("i", -1)) != i:
+                raise _ChainError(
+                    f"chain step mismatch: got {msg_meta.get('i')}, "
+                    f"expected {i}"
+                )
+            nxt = torch.as_tensor(msg_tensors[0]).reshape(-1).numpy().astype(
+                np.int64
+            )
+            vocab = int(self._client_params["embed"].shape[0])
+            if nxt.shape[0] != session.handle.batch_size or (
+                nxt.size and not (0 <= nxt.min() and nxt.max() < vocab)
+            ):
+                # the next round embeds these: never gather out of range
+                raise _ChainError(
+                    f"chain ids of shape {nxt.shape} outside the "
+                    f"vocabulary [0, {vocab}) or the batch",
+                    permanent=True,
+                )
+            return nxt
+
+    async def _run_chain_step(
+        self, session: _Session, meta: dict, tensors: list
+    ) -> None:
+        """One pushed hop of a chained decode_n on a MIDDLE or TAIL span:
+        run the span step; a middle pushes the hidden state on, the tail
+        applies the head and pushes the ids back to the coordinator. Every
+        failure travels to the coordinator as a chain_error push, never
+        onto this span's own client stream (the client is not reading it
+        during a decode_n call)."""
+        chain = meta["chain"]
+        origin = chain["origin"]
+        deadline = self._local_deadline(meta)
+        try:
+            hidden = tensors[0]
+
+            def _dispatch():
+                if not self.manager.epoch_valid(session.handle):
+                    raise SessionKVLost("session cache lost: replay")
+                session.last_step_at = clock.monotonic()
+                out = self.executor.decode(
+                    session.handle, hidden, commit=True,
+                    layers=session.layers, fetch=False,
+                )
+                self.decode_n_steps += 1
+                return out
+
+            route = meta.get("route") or []
+            if not route:
+                # the tail's eligibility is checked before it commits: the
+                # coordinator committed this round anyway, and a dirty
+                # replay covers either order, so fail the cheapest way
+                err = await self._chain_tail_ineligible(meta)
+                if err is not None:
+                    raise _ChainError(err, permanent=True)
+            try:
+                out_dev = await self.compute.submit(
+                    PRIORITY_INFERENCE, _dispatch, deadline=deadline
+                )
+            except DeadlineExpired:
+                # the coordinator's deadline already fired and it answered
+                # its client: a chain_error would land on a stale cid
+                self._note_deadline_expired(meta, "in chain hop queue")
+                return
+            session.n_steps += 1
+            session.sum_tokens += int(hidden.shape[0])
+            if route:
+                out = await asyncio.to_thread(self._fetch, out_dev)
+                remaining = None
+                if deadline is not None:
+                    remaining = deadline - clock.monotonic()
+                    if remaining <= 0:
+                        self._note_deadline_expired(
+                            meta, "before chain forward"
+                        )
+                        return
+                await self._push_hop(
+                    route, chain, meta.get("step"), meta.get("head_dtype"),
+                    out, deadline_s=remaining,
+                )
+            else:
+                nxt = await self.compute.submit(
+                    PRIORITY_INFERENCE, self._select_head, out_dev
+                )
+                conn = await self.peers.get(origin["host"], origin["port"])
+                async with self.peers.limiter(
+                    origin["host"], origin["port"]
+                ).slot():
+                    await conn.push(
+                        "rpc_push",
+                        {
+                            "session_id": origin["session_id"],
+                            "chain_ids": True,
+                            "cid": chain.get("cid"),
+                            "i": chain.get("i"),
+                        },
+                        [torch.from_numpy(nxt.astype(np.int32))],
+                    )
+        except Exception as e:
+            logger.warning("chain step failed: %s", e)
+            try:
+                conn = await self.peers.get(origin["host"], origin["port"])
+                await conn.push(
+                    "rpc_push",
+                    {
+                        "session_id": origin["session_id"],
+                        "chain_error": f"{type(e).__name__}: {e}",
+                        "permanent": bool(getattr(e, "permanent", False)),
+                        "cid": chain.get("cid"),
+                    },
+                    [],
+                )
+            except Exception:
+                pass  # the coordinator's deadline covers a dead push path
+
+    async def _chain_tail_ineligible(self, meta: dict) -> str | None:
+        """Why this span cannot play the TAIL role (norm + head) of a
+        chained decode_n; None when it can."""
+        if self.end_block != self.spec.num_hidden_layers:
+            return (
+                f"span ends at block {self.end_block}, not the model's "
+                f"last block {self.spec.num_hidden_layers}"
+            )
+        await self._ensure_client_params()
+        if self._client_params is None:
+            return "tail has no norm/lm_head params"
+        return self._head_dtype_mismatch(meta, "tail")
+
+    def _embed_ids(self, ids: np.ndarray) -> torch.Tensor:
+        """ids [B] -> hidden [B, 1, D] in the wire dtype, on the device: the
+        client's embed (the table's dtype, then f32) and its wire cast, so
+        the stepped loop feeds the span what the per-step path feeds it."""
+        ids_t = torch.as_tensor(np.asarray(ids, dtype=np.int64))[:, None]
+        h = embed_impl(self._client_params, ids_t.to(self.device)).float()
+        return h.to(self._wire_torch_dtype)
+
+    def _select_head(self, out_dev) -> np.ndarray:
+        """Span output [B, 1, D] -> greedy next ids [B] (int64, host),
+        through the client's per-step math: the wire-dtype fetch cast to
+        f32, norm + head, first-index argmax."""
+        out = out_dev.to(self._wire_torch_dtype).float()
+        logits = norm_head_impl(
+            self._client_params, out[:, -1:], self.spec.rms_norm_eps
+        )[:, 0]
+        return logits.argmax(dim=-1).cpu().numpy().astype(np.int64)
+
+    def _decode_n_ineligible(self, session: _Session | None = None):
+        """Why this server cannot run the FUSED decode_n loop (for the
+        session, when given); None when it can. The stepped loop has
+        weaker needs (`_run_decode_n`). Surfaced in rpc_info as
+        decode_n_decline."""
+        if not self.decode_n_fused:
+            return "fused loop off (decode_n_fused=False)"
+        if session is not None and session.layers is not None:
+            return "session routes a sub-span, not the whole model"
+        # the loop applies the head after THIS span: the span must be the
+        # whole model
+        if not (
+            self.start_block == 0
+            and self.end_block == self.spec.num_hidden_layers
+        ):
+            return (
+                f"span [{self.start_block},{self.end_block}) is not the "
+                f"whole model"
+            )
+        if self.manager.quant is not None:
+            return "quantized KV arena"
+        if self._client_params_unavailable or (
+            self._client_params is None and self.model_dir is None
+        ):
+            return "server has no embed/norm/lm_head params"
+        return None
+
+    async def _ensure_client_params(self) -> None:
+        if (
+            self._client_params is not None
+            or self._client_params_unavailable
+        ):
+            return
+        if self.model_dir is None:
+            self._client_params_unavailable = True
+            return
+        if self._client_params_lock is None:
+            self._client_params_lock = lockwatch.async_lock(
+                "server.client_params"
+            )
+        async with self._client_params_lock:
+            if (
+                self._client_params is None
+                and not self._client_params_unavailable
+            ):
+                # a multi-GB read: off the event loop
+                await asyncio.to_thread(self._load_client_params)
+
+    def _load_client_params(self) -> None:
+        from bloombee_tpu_torch.models.checkpoint import load_client_params
+
+        try:
+            # the checkpoint's own dtype, as the client loads it, so the
+            # server's head gives the client's per-step logits
+            self._client_params = load_client_params(
+                self.model_dir, device=self.device
+            )
+        except Exception as e:
+            logger.warning("decode_n unavailable (client params): %s", e)
+            self._client_params_unavailable = True
 
     # ------------------------------------------- stall-free chunked prefill
     def _chunk_budget(self) -> int:
@@ -2276,6 +2939,18 @@ class BlockServer:
 
     async def _rpc_push(self, meta: dict, tensors) -> None:
         session = self._sessions.get(meta["session_id"])
+        if meta.get("chain_ids") or meta.get("chain_error"):
+            # chained decode_n control message for a waiting coordinator:
+            # bypass push_inbox (its consumer, the session loop, is blocked
+            # inside the coordinator waiting for exactly this)
+            if session is None:
+                logger.warning(
+                    "chain message for unknown session %s dropped",
+                    meta["session_id"],
+                )
+                return
+            session.chain_inbox.put_nowait((meta, tensors))
+            return
         if session is None:
             # a push can race ahead of the session's stream-open
             # (allocation may be waiting on cache budget): buffer it

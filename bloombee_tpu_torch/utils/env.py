@@ -54,3 +54,35 @@ def get(name: str):
     if raw is None:
         return flag.default
     return _parse(flag, raw)
+
+
+def import_declaring_modules() -> None:
+    """Import every port module that declares switches, so describe() is
+    complete (kept next to the registry: a new declare() site is added
+    here once)."""
+    import bloombee_tpu_torch.client.integrity  # noqa: F401
+    import bloombee_tpu_torch.client.session  # noqa: F401
+    import bloombee_tpu_torch.kv.cache_manager  # noqa: F401
+    import bloombee_tpu_torch.kv.prefix  # noqa: F401
+    import bloombee_tpu_torch.runtime.executor  # noqa: F401
+    import bloombee_tpu_torch.server.block_server  # noqa: F401
+    import bloombee_tpu_torch.server.compute_queue  # noqa: F401
+    import bloombee_tpu_torch.utils.clock  # noqa: F401
+    import bloombee_tpu_torch.utils.ledger  # noqa: F401
+    import bloombee_tpu_torch.wire.faults  # noqa: F401
+    import bloombee_tpu_torch.wire.pipeline  # noqa: F401
+    import bloombee_tpu_torch.wire.rpc  # noqa: F401
+    import bloombee_tpu_torch.wire.tensor_codec  # noqa: F401
+
+
+def describe() -> str:
+    """The switch table as Markdown, in the JAX package's format (the
+    declared switches only: call import_declaring_modules() first for all
+    of them)."""
+    lines = ["| switch | type | default | description |", "|---|---|---|---|"]
+    for flag in sorted(_REGISTRY.values(), key=lambda f: f.name):
+        lines.append(
+            f"| {flag.name} | {flag.kind.__name__} | {flag.default!r} "
+            f"| {flag.help} |"
+        )
+    return "\n".join(lines)

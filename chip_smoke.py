@@ -154,6 +154,33 @@ Phases:
    Prints each session's time to first token and prefill wire bytes, the
    resume's and the kv_put sweeps' times, the kv_put count and bytes, the
    launches by kernel, and the card's name and power limit.
+8. Server-side multi-step decode (decode_n) served in bf16 over phase 4's
+   weights, three runs, each with its own registry and port BlockServers
+   given the client's parameters and `max_batch=1`, 1024-page arenas,
+   push sessions with 1000-token prompts; each session generates per
+   step, then on a fresh session with `server_decode=True` (chunk 32),
+   launch counts reset and read around each (paths "decode_n_*" and
+   "decode_n_*_per_step"):
+   (i) fused: one server over [0, 32), one session, 64 tokens (the
+       device loop of `executor.decode_n`);
+   (ii) chained: [0, 16) and [16, 32), four sessions, 32 tokens each;
+   (iii) stepped: one [0, 32) server over an int4 arena, one session, 32
+       tokens.
+   Tokens identical to the per-step run; paged decode (int4 decode)
+   launches = each server's layers x its steps (`decode_n_steps`). Prints
+   time to first token, per-token time, the replies' dispatch time per
+   token and the decode_n round trips, and the card's name and power
+   limit.
+9. The CLI, each span in its own process: a random checkpoint at
+   Llama-3-8B width with 8 layers in a temporary directory (removed at
+   the end), `python -m bloombee_tpu_torch.cli.run_registry` and two
+   `...cli.run_server --device cuda` processes ([0, 4), [4, 8)); a port
+   client in this process generates 32 tokens from a 1000-token prompt
+   per step and with `server_decode=True` (chained): identical tokens,
+   equal to an in-process solo executor's over the same checkpoint; the
+   servers' launch counts (`rpc_info` `kernel_launches`, path "cli");
+   `cli.health --probe` lists both spans ONLINE; SIGTERM stops each
+   server with exit code 0.
 
 Prints the card's name and power limit, per-phase results, a
 `{"kernels": [...]}` line, and as its last line
@@ -169,6 +196,7 @@ import asyncio
 import contextlib
 import json
 import pathlib
+import signal
 import subprocess
 import sys
 import time
@@ -178,8 +206,6 @@ REPO = pathlib.Path(__file__).resolve().parent
 H, HKV, HD, PS = 32, 8, 128, 16
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense, FLOP/s
-SOURCES = ("flash_attention", "paged_attention", "paged_decode",
-           "paged_ragged")
 REPLACES = {
     "flash_attention": "bloombee_tpu/ops/pallas/flash_attention.py:124",
     "paged_decode_attention": "bloombee_tpu/ops/pallas/paged_attention.py:545",
@@ -295,17 +321,18 @@ def phase_build():
     from bloombee_tpu_torch.ops.cuda import build
 
     t0 = time.perf_counter()
-    logs = build.build(SOURCES)
-    say(f"[build] {list(SOURCES)} built in "
+    sources = build.sources()
+    logs = build.build(sources)
+    say(f"[build] {sources} built in "
         f"{time.perf_counter() - t0:.1f} s (cached: "
-        f"{[s for s in SOURCES if s not in logs]})")
+        f"{[s for s in sources if s not in logs]})")
     for name, log in logs.items():
         for kernel, report in ptxas_report(log):
             say(f"[build] {name}: {kernel}: {report}")
         for line in log.splitlines():
             if "Performance Loss" in line:  # e.g. serialized wgmma
                 say(f"[build] {name}: {line.strip()}")
-    for name in SOURCES:
+    for name in sources:
         say(f"[build] {name}: tensor-core instructions in the SASS "
             f"(cuobjdump): {tensor_core_ops(build, name)}")
 
@@ -2113,6 +2140,8 @@ def phase_serving(profile: bool = False) -> dict[str, dict]:
     launches.update(phase_served(layers, spec, client, gen))
     launches.update(phase_spec(layers, spec, client, gen))
     launches.update(phase_prefix(layers, spec, client, gen))
+    launches.update(phase_decode_n(layers, spec, client, gen))
+    launches.update(phase_cli(gen))
     return launches
 
 
@@ -3332,6 +3361,610 @@ def phase_prefix(layers, spec, client, gen) -> dict:
         raise AssertionError("prefix/lease/repl runs failed: "
                              + "; ".join(failures))
     return by_path
+
+
+# ------------------------------------------------------------- phase 8
+DN_RUNS = (
+    # (path, label, spans, server keyword arguments, sessions, new tokens)
+    ("decode_n_fused", "(i) fused", ((0, 32),), {}, 1, 64),
+    ("decode_n_chained", "(ii) chained", ((0, 16), (16, 32)), {}, 4, 32),
+    ("decode_n_int4", "(iii) stepped, int4 arena", ((0, 32),),
+     {"kv_quant": "int4"}, 1, 32),
+    # (i)'s work through the stepped loop: what the fused loop saves
+    ("decode_n_stepped", "(iv) stepped, bf16 arena (fused loop off)",
+     ((0, 32),), {"decode_n_fused": False}, 1, 64),
+)
+
+
+async def dn_generate(model, session, prompt, n_new, server_decode) -> dict:
+    """One `generate` of n_new greedy tokens from `prompt` [L] on an open
+    session, per step or with server-side decode: the tokens, the time to
+    the prefill step's reply (time to first token), the mean time of each
+    later token, and what the session recorded (reply metas, timings)."""
+    import torch
+
+    rec = tap(session, model)
+    step, marks = session.step, []
+
+    async def timed_step(*args, **kwargs):
+        out = await step(*args, **kwargs)
+        marks.append(time.perf_counter())
+        return out
+
+    session.step = timed_step
+    t0 = time.perf_counter()
+    ids = await model.generate(prompt[None], max_new_tokens=n_new,
+                               session=session, server_decode=server_decode)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    return {
+        "tokens": ids[0, -n_new:].cpu(),
+        "ttft_ms": (marks[0] - t0) * 1e3,
+        "per_token_ms": (t1 - marks[0]) * 1e3 / (n_new - 1),
+        "metas": rec["metas"],
+        "timings": list(session.timings),
+    }
+
+
+def dn_run(layers, spec, client, prompts, spans, server_kw, n_new) -> dict:
+    """A port registry and port BlockServers over `spans` (the client's
+    parameters given, `max_batch=1`) on a ServerLoop; the port client's
+    sessions (one per prompt, concurrent) generate n_new tokens per step,
+    then on fresh sessions with `server_decode=True` (chunk 32). Launch
+    counts and the servers' decode_n counters are read around each mode."""
+    import torch
+
+    from bloombee_tpu_torch.ops.cuda import build
+
+    uid = f"llama3-8b-dn-{len(spans)}-{server_kw.get('kv_quant', 'bf16')}"
+
+    async def drive(reg_port, servers):
+        models = [port_client(client, spec, reg_port, uid,
+                              server_decode_chunk=32) for _ in prompts]
+        out = {}
+        try:
+            for mode, sd in (("per_step", False), ("server_decode", True)):
+                async with contextlib.AsyncExitStack() as stack:
+                    sessions = [
+                        await stack.enter_async_context(
+                            m.inference_session(1100, 1)
+                        )
+                        for m in models
+                    ]
+                    torch.cuda.synchronize()
+                    steps0 = [s.decode_n_steps for s in servers]
+                    calls0 = [s.decode_n_calls for s in servers]
+                    fused0 = [s.decode_n_fused_calls for s in servers]
+                    build.reset_launch_counts()
+                    runs = await asyncio.gather(*(
+                        dn_generate(m, s, p, n_new, sd)
+                        for m, s, p in zip(models, sessions, prompts)
+                    ))
+                    torch.cuda.synchronize()
+                    out[mode] = {
+                        "runs": runs,
+                        "launches": dict(build.LAUNCHES),
+                        "steps": [s.decode_n_steps - k
+                                  for s, k in zip(servers, steps0)],
+                        "calls": [s.decode_n_calls - k
+                                  for s, k in zip(servers, calls0)],
+                        "fused_calls": [s.decode_n_fused_calls - k
+                                        for s, k in zip(servers, fused0)],
+                    }
+        finally:
+            for m in models:
+                await m.manager.registry.close()
+        return out
+
+    with ReplayWatch() as watch, ServerLoop() as servers_loop:
+        reg, servers = servers_loop.run(start_span_servers(
+            layers, spec, uid, spans, torch.bfloat16, 1024,
+            client_params=client, max_batch=1, **server_kw
+        ))
+        try:
+            out = asyncio.run(drive(reg.port, servers))
+            out["server_layers"] = [s.end_block - s.start_block
+                                    for s in servers]
+        finally:
+            servers_loop.run(stop_span_servers(reg, servers))
+            del servers
+    out["replays"] = list(watch.seen)
+    torch.cuda.empty_cache()
+    return out
+
+
+def dn_numbers(mode: dict) -> dict:
+    """Medians over a mode's sessions (ms): time to first token, per-token
+    time, the replies' t_dispatch_ms (per step; per token of a decode_n
+    reply), and for decode_n each RPC's round trip and its time per
+    token."""
+    def med(xs):
+        xs = sorted(xs)
+        return round(xs[len(xs) // 2], 3) if xs else None
+
+    runs = mode["runs"]
+    dispatch, rpc, rpc_tok = [], [], []
+    for r in runs:
+        for k, meta in r["metas"]:
+            if meta.get("t_dispatch_ms") is None:
+                continue
+            n = 1
+            for t in r["timings"]:
+                if t.get("decode_n") and t["step"] == meta.get("step"):
+                    n = t["tokens"]
+            dispatch.append(meta["t_dispatch_ms"] / n)
+        for t in r["timings"]:
+            if t.get("decode_n"):
+                rpc.append(t["total_ms"])
+                rpc_tok.append(t["total_ms"] / t["tokens"])
+    return {
+        "ttft_ms": med([r["ttft_ms"] for r in runs]),
+        "per_token_ms": med([r["per_token_ms"] for r in runs]),
+        "t_dispatch_ms_per_token": med(dispatch),
+        "decode_n_rpcs": len(rpc),
+        "decode_n_rpc_ms": med(rpc),
+        "decode_n_rpc_ms_per_token": med(rpc_tok),
+    }
+
+
+def phase_decode_n(layers, spec, client, gen) -> dict:
+    """Phase 8: server-side multi-step decode served at full width on
+    phase 4's weights, each run on its own registry and port BlockServers
+    given the client's parameters, `max_batch=1` (so a per-step run and a
+    decode_n run are comparable step for step), 1024-page arenas, push
+    sessions of the port client with 1000-token prompts:
+
+    (i) fused: one server over [0, 32), one session, 64 tokens;
+    (ii) chained: servers over [0, 16) and [16, 32), four sessions, 32
+         tokens each;
+    (iii) stepped: one [0, 32) server over an int4 arena, one session, 32
+         tokens;
+    (iv) (i) with the fused loop switched off (`decode_n_fused=False`):
+         the same calls through the stepped loop, over the same dense
+         arena.
+
+    Each session generates per step, then on a fresh session with
+    `server_decode=True` (chunk 32): the tokens must be identical. Decode
+    launches (paged decode, or int4 decode on the int4 arena) must equal
+    each server's layers x the steps it ran (its `decode_n_steps` counter
+    in the decode_n run; layers x sessions x (n - 1) per step), and every
+    decode_n call of (i) must have taken the fused loop (the servers'
+    `decode_n_fused_calls`), none of the others'. Prints the
+    time to first token, per-token time, the replies' dispatch time per
+    token and the decode_n round trips, beside phase 5's, and the card's
+    name and power limit. Returns each run's launch counts by path."""
+    import torch
+
+    t_phase = time.perf_counter()
+    prompts = torch.randint(0, spec.vocab_size, (4, 1000), generator=gen,
+                            device="cuda")
+    by_path, failures = {}, []
+    for path, label, spans, server_kw, n_sess, n_new in DN_RUNS:
+        run = dn_run(layers, spec, client, prompts[:n_sess], spans,
+                     server_kw, n_new)
+        kernel = ("paged_decode_attention_int4" if server_kw.get("kv_quant")
+                  else "paged_decode_attention")
+        ps, sd = run["per_step"], run["server_decode"]
+        same = all(
+            torch.equal(a["tokens"], b["tokens"])
+            for a, b in zip(ps["runs"], sd["runs"])
+        )
+        used = all(any(t.get("decode_n") for t in r["timings"])
+                   for r in sd["runs"])
+        want_ps = spec.num_hidden_layers * n_sess * (n_new - 1)
+        want_sd = sum(n * k for n, k in zip(run["server_layers"],
+                                            sd["steps"]))
+        stats = {
+            "route": [list(s) for s in spans],
+            "tokens_identical": same,
+            "decode_n_used": used,
+            "per_step": dn_numbers(ps),
+            "server_decode": dn_numbers(sd),
+            "decode_n_steps": sd["steps"],
+            "decode_n_calls": sd["calls"],
+            "decode_n_fused_calls": sd["fused_calls"],
+            "launches": {"per_step": ps["launches"],
+                         "server_decode": sd["launches"]},
+            "decode_launches_want": {"per_step": want_ps,
+                                     "server_decode": want_sd},
+        }
+        by_path[f"{path}_per_step"] = ps["launches"]
+        by_path[path] = sd["launches"]
+        say(f"[{path}] {label}: Llama-3-8B bf16 over {stats['route']}, "
+            f"{n_sess} session(s) x {n_new} tokens from 1000; tokens "
+            f"identical to per step: {same}; per step "
+            f"{stats['per_step']}; server_decode {stats['server_decode']}; "
+            f"decode_n steps per server {sd['steps']}; launches "
+            f"{stats['launches']} (decode wanted "
+            f"{stats['decode_launches_want']})")
+        say(f"[{path}] " + json.dumps(stats))
+        if not same:
+            failures.append(f"{path}: tokens differ from the per-step run")
+        if not used:
+            failures.append(f"{path}: a session never ran decode_n")
+        if any(k != n_sess * (n_new - 1) for k in sd["steps"]):
+            failures.append(f"{path}: decode_n steps {sd['steps']}")
+        want_fused = sd["calls"] if path == "decode_n_fused" else [
+            0 for _ in sd["calls"]
+        ]
+        if sd["fused_calls"] != want_fused:
+            failures.append(f"{path}: fused calls {sd['fused_calls']} of "
+                            f"decode_n calls {sd['calls']}, want "
+                            f"{want_fused}")
+        if ps["launches"].get(kernel) != want_ps:
+            failures.append(f"{path}: {ps['launches'].get(kernel)} {kernel} "
+                            f"launches per step, want {want_ps}")
+        if sd["launches"].get(kernel) != want_sd:
+            failures.append(f"{path}: {sd['launches'].get(kernel)} {kernel} "
+                            f"launches with decode_n, want {want_sd}")
+        if not sd["launches"].get("flash_attention"):
+            failures.append(f"{path}: the prefill never launched flash")
+        if run["replays"]:
+            failures.append(f"{path}: group replays {run['replays']}")
+    say(f"[decode_n] phase took {time.perf_counter() - t_phase:.1f} s")
+    say(card_line())
+    if failures:
+        raise AssertionError("decode_n runs failed: " + "; ".join(failures))
+    return by_path
+
+
+def dn_fused_vs_stepped(layers, spec, client, gen, rounds: int = 2) -> dict:
+    """Phase 8's runs (i) and (iv) alone, in the order fused, stepped,
+    stepped, fused (`rounds` times), so that neither loop always runs
+    first on a host shared with other machines: one session over one
+    [0, 32) server, 64 tokens from a 1000-token prompt per step, then with
+    `server_decode=True`. Not part of the script's main path; run after
+    `phase_build()` (README). Prints each run's numbers, then each loop's
+    medians over its runs, and the card's name and power limit."""
+    import torch
+
+    prompt = torch.randint(0, spec.vocab_size, (1, 1000), generator=gen,
+                           device="cuda")
+    loops = {"fused": {}, "stepped": {"decode_n_fused": False}}
+    order = ["fused", "stepped", "stepped", "fused"] * rounds
+    seen = {name: [] for name in loops}
+    for name in order:
+        run = dn_run(layers, spec, client, prompt, ((0, 32),), loops[name],
+                     64)
+        ps, sd = run["per_step"], run["server_decode"]
+        same = torch.equal(ps["runs"][0]["tokens"], sd["runs"][0]["tokens"])
+        fused = sd["fused_calls"] == (sd["calls"] if name == "fused"
+                                      else [0])
+        if not (same and fused):
+            raise AssertionError(f"{name}: tokens identical {same}, fused "
+                                 f"calls {sd['fused_calls']} of {sd['calls']}")
+        row = {"per_step": dn_numbers(ps), "server_decode": dn_numbers(sd)}
+        seen[name].append(row)
+        say(f"[dn_ab] {name} " + json.dumps(row))
+
+    def med(xs):
+        xs = sorted(xs)
+        return round(xs[len(xs) // 2], 3)
+
+    out = {
+        name: {
+            key: med([r["server_decode"][key] for r in rows])
+            for key in ("per_token_ms", "t_dispatch_ms_per_token",
+                        "decode_n_rpc_ms_per_token")
+        }
+        for name, rows in seen.items()
+    }
+    say("[dn_ab] medians " + json.dumps(out))
+    say(card_line())
+    return out
+
+
+# ------------------------------------------------------------- phase 9
+CLI_LAYERS = 8
+
+
+def write_checkpoint(path: pathlib.Path, spec, seed: int) -> None:
+    """A random Llama checkpoint at `spec`'s width and depth in the HF
+    layout (config.json, one safetensors file per layer plus one for the
+    embeddings, final norm and head, an index), written a layer at a
+    time."""
+    import torch
+    from safetensors.torch import save_file
+
+    from bloombee_tpu_torch.models.llama.block import (
+        HF_BLOCK_KEYS,
+        init_block_params,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    d, vocab = spec.hidden_size, spec.vocab_size
+    config = {
+        "model_type": "llama", "architectures": ["LlamaForCausalLM"],
+        "hidden_size": d, "intermediate_size": spec.intermediate_size,
+        "num_attention_heads": spec.num_attention_heads,
+        "num_key_value_heads": spec.num_key_value_heads,
+        "head_dim": spec.head_dim,
+        "num_hidden_layers": spec.num_hidden_layers, "vocab_size": vocab,
+        "rms_norm_eps": spec.rms_norm_eps, "rope_theta": spec.rope_theta,
+        "max_position_embeddings": 8192, "tie_word_embeddings": False,
+        "torch_dtype": "bfloat16",
+    }
+    (path / "config.json").write_text(json.dumps(config))
+    weight_map = {}
+
+    def save(tensors: dict, name: str) -> None:
+        save_file({k: v.contiguous().cpu() for k, v in tensors.items()},
+                  str(path / name))
+        weight_map.update({k: name for k in tensors})
+
+    for i in range(spec.num_hidden_layers):
+        layer = init_block_params(gen, spec, dtype=torch.bfloat16,
+                                  device="cuda")
+        save({
+            f"model.layers.{i}.{key}": (
+                layer[name].t() if transpose else layer[name]
+            )
+            for key, (name, transpose) in HF_BLOCK_KEYS.items()
+        }, f"layer-{i:02d}.safetensors")
+        del layer
+    save({
+        "model.embed_tokens.weight": torch.randn(
+            (vocab, d), generator=gen, device="cuda"
+        ).to(torch.bfloat16),
+        "model.norm.weight": torch.ones((d,), dtype=torch.bfloat16,
+                                        device="cuda"),
+        "lm_head.weight": (
+            torch.randn((vocab, d), generator=gen, device="cuda") * d**-0.5
+        ).to(torch.bfloat16),
+    }, "head.safetensors")
+    (path / "model.safetensors.index.json").write_text(
+        json.dumps({"metadata": {}, "weight_map": weight_map})
+    )
+
+
+def cli_spawn(args: list[str], log: pathlib.Path, home: pathlib.Path):
+    """A `python -m bloombee_tpu_torch.cli.*` process from the repo root,
+    logging to `log`, with `home` as its HOME (the throughput cache)."""
+    import os
+
+    proc = subprocess.Popen(
+        [sys.executable, "-m", *args], cwd=REPO,
+        stdout=open(log, "w"), stderr=subprocess.STDOUT,
+        env={**os.environ, "HOME": str(home)},
+    )
+    proc.log = log
+    return proc
+
+
+def cli_logs(procs) -> str:
+    return "\n".join(f"--- {p.log.name} ---\n" + p.log.read_text()[-3000:]
+                     for p in procs)
+
+
+def phase_cli(gen) -> dict:
+    """Phase 9: each span in its own process, started through the CLI. A
+    random checkpoint at Llama-3-8B width with 8 layers (~5.6 GB with the
+    128256-token embeddings and head) is written to a temporary
+    directory; `python -m bloombee_tpu_torch.cli.run_registry` and two
+    `...cli.run_server` processes (`--blocks 0:4` and `4:8`, `--device
+    cuda --warmup-batches 1 --drain-timeout 5`) serve it. A port client in
+    this process generates 32 tokens from a 1000-token prompt per step,
+    then with `server_decode=True` (chained): both runs' tokens must equal
+    each other and an in-process solo SpanExecutor's with the client's
+    head over the same checkpoint. The servers' own launch counts
+    (`rpc_info` `kernel_launches`) must show flash and paged decode;
+    `cli.health --probe` must list both spans ONLINE; SIGTERM must stop
+    each server with exit code 0 within its drain timeout + 10 s. Prints
+    the time to first token and per-token time of both runs and the
+    card's name and power limit; returns the servers' launches by path
+    ("cli")."""
+    import shutil
+    import socket
+    import tempfile
+
+    import torch
+
+    from bloombee_tpu_torch.client import (
+        ClientConfig,
+        DistributedModelForCausalLM,
+    )
+    from bloombee_tpu_torch.models.checkpoint import (
+        load_client_params,
+        load_span_params,
+    )
+    from bloombee_tpu_torch.swarm.registry import RegistryClient
+    from bloombee_tpu_torch.wire.rpc import connect
+
+    t_phase = time.perf_counter()
+    spec = llama3_8b(CLI_LAYERS)
+    uid, n_new, drain_s = "llama3-8b-cli", 32, 5
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="bbtpu-cli-"))
+    model_dir = tmp / "model"
+    model_dir.mkdir()
+    procs, failures, stats = [], [], {}
+    try:
+        t0 = time.perf_counter()
+        write_checkpoint(model_dir, spec, seed=23)
+        stats["checkpoint_write_s"] = round(time.perf_counter() - t0, 2)
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            reg_port = s.getsockname()[1]
+        registry = f"127.0.0.1:{reg_port}"
+        procs.append(cli_spawn(
+            ["bloombee_tpu_torch.cli.run_registry", "--host", "127.0.0.1",
+             "--port", str(reg_port)], tmp / "registry.log", tmp,
+        ))
+        # a server announces at start: the registry must listen first
+        t0 = time.perf_counter()
+        while True:
+            try:
+                socket.create_connection(("127.0.0.1", reg_port), 1).close()
+                break
+            except OSError:
+                if procs[0].poll() is not None or (
+                    time.perf_counter() - t0 > 60
+                ):
+                    raise AssertionError("the CLI registry never came up\n"
+                                         + cli_logs(procs))
+                time.sleep(0.1)
+        t0 = time.perf_counter()
+        servers = [
+            cli_spawn(
+                ["bloombee_tpu_torch.cli.run_server", str(model_dir),
+                 "--model-uid", uid, "--registry", registry, "--blocks",
+                 blocks, "--host", "127.0.0.1", "--device", "cuda",
+                 "--warmup-batches", "1", "--drain-timeout", str(drain_s)],
+                tmp / f"server-{blocks.replace(':', '-')}.log", tmp,
+            )
+            for blocks in (f"0:{CLI_LAYERS // 2}",
+                           f"{CLI_LAYERS // 2}:{CLI_LAYERS}")
+        ]
+        procs += servers
+
+        async def swarm_up():
+            reader = RegistryClient("127.0.0.1", reg_port)
+            try:
+                while time.perf_counter() - t0 < 300:
+                    if any(p.poll() is not None for p in procs):
+                        raise AssertionError(
+                            "a CLI process exited\n" + cli_logs(procs)
+                        )
+                    try:
+                        infos = await reader.get_module_infos(
+                            uid, range(CLI_LAYERS)
+                        )
+                        if all(i.servers for i in infos):
+                            return {
+                                sid: (i.host, i.port)
+                                for m in infos
+                                for sid, i in m.servers.items()
+                            }
+                    except OSError:
+                        pass  # the registry is still starting
+                    await asyncio.sleep(0.5)
+                raise AssertionError("the CLI swarm never came up\n"
+                                     + cli_logs(procs))
+            finally:
+                await reader.close()
+
+        async def launches(addrs):
+            out = {}
+            for host, port in addrs:
+                conn = await connect(host, port)
+                try:
+                    info, _ = await conn.call("rpc_info", {})
+                finally:
+                    await conn.close()
+                for k, v in info["kernel_launches"].items():
+                    out[k] = out.get(k, 0) + v
+            return out
+
+        addrs = sorted(asyncio.run(swarm_up()).values())
+        stats["swarm_up_s"] = round(time.perf_counter() - t0, 2)
+        prompt = torch.randint(0, spec.vocab_size, (1000,), generator=gen,
+                               device="cuda")
+
+        async def clients():
+            rc = RegistryClient("127.0.0.1", reg_port)
+            model = DistributedModelForCausalLM.from_pretrained(
+                str(model_dir), rc, model_uid=uid, device="cuda",
+                config=ClientConfig(server_decode_chunk=32),
+            )
+            try:
+                before = await launches(addrs)
+                runs = {}
+                for mode, sd in (("per_step", False),
+                                 ("server_decode", True)):
+                    async with model.inference_session(1100, 1) as session:
+                        runs[mode] = await dn_generate(
+                            model, session, prompt, n_new, sd
+                        )
+                after = await launches(addrs)
+                return runs, before, after
+            finally:
+                await rc.close()
+
+        runs, before, after = asyncio.run(clients())
+        ps, sd = runs["per_step"], runs["server_decode"]
+        cli_launches = {k: after[k] - before.get(k, 0) for k in after}
+
+        layers8, _ = load_span_params(str(model_dir), 0, CLI_LAYERS,
+                                      dtype=torch.bfloat16, device="cuda")
+        local = DistributedModelForCausalLM(
+            spec, load_client_params(str(model_dir), device="cuda"), None,
+            device="cuda",
+        )
+        ref = served_reference(layers8, spec, local, prompt[None], None,
+                               n_new)[0][0][1]
+        del layers8, local
+        torch.cuda.empty_cache()
+
+        health = subprocess.run(
+            [sys.executable, "-m", "bloombee_tpu_torch.cli.health", uid,
+             "--num-blocks", str(CLI_LAYERS), "--registry", registry,
+             "--probe"],
+            capture_output=True, text=True, timeout=60, cwd=REPO,
+        )
+        span_lines = [ln for ln in health.stdout.splitlines()
+                      if " blocks [" in ln]
+        health_ok = (health.returncode == 0
+                     and "COMPLETE" in health.stdout
+                     and len(span_lines) == 2
+                     and all("ONLINE" in ln for ln in span_lines))
+
+        exits = []
+        for p in servers:
+            t0 = time.perf_counter()
+            p.send_signal(signal.SIGTERM)
+            try:
+                rc = p.wait(timeout=drain_s + 10)
+            except subprocess.TimeoutExpired:
+                rc = None
+            exits.append((rc, round(time.perf_counter() - t0, 2)))
+
+        want_decode = spec.num_hidden_layers * 2 * (n_new - 1)
+        stats.update({
+            "per_step": dn_numbers({"runs": [ps]}),
+            "server_decode": dn_numbers({"runs": [sd]}),
+            "tokens_identical": torch.equal(ps["tokens"], sd["tokens"]),
+            "tokens_equal_solo_executor": torch.equal(ps["tokens"],
+                                                      ref.cpu()),
+            "servers_launches": cli_launches,
+            "decode_launches_want": want_decode,
+            "health_ok": health_ok,
+            "sigterm_exits": exits,
+        })
+        say(f"[cli] Llama-3-8B width, {CLI_LAYERS} layers, two CLI server "
+            f"processes {addrs} + a CLI registry; 32 tokens from 1000 per "
+            f"step and with server_decode: {json.dumps(stats)}")
+        say("[cli] health --probe:\n" + health.stdout.rstrip())
+        if not stats["tokens_identical"]:
+            failures.append("server_decode tokens differ from per step")
+        if not stats["tokens_equal_solo_executor"]:
+            failures.append("served tokens differ from the solo executor")
+        if cli_launches.get("paged_decode_attention") != want_decode:
+            failures.append(
+                f"{cli_launches.get('paged_decode_attention')} paged decode "
+                f"launches in the servers, want {want_decode}"
+            )
+        if not cli_launches.get("flash_attention"):
+            failures.append("the servers never launched flash")
+        if not health_ok:
+            failures.append("health --probe: " + health.stdout
+                            + health.stderr)
+        if any(rc != 0 for rc, _ in exits):
+            failures.append(f"SIGTERM exits {exits}\n" + cli_logs(servers))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.terminate()
+        for p in procs:
+            try:
+                p.wait(timeout=15)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    say(f"[cli] phase took {time.perf_counter() - t_phase:.1f} s")
+    say(card_line())
+    if failures:
+        raise AssertionError("CLI run failed: " + "; ".join(failures))
+    return {"cli": cli_launches}
 
 
 def main() -> int:

@@ -18,9 +18,10 @@ this module imports:
   records and seeded rng; `out_digest`, `SanityGate` and `tensors_close`
   agree with the JAX package, and an integrity client verifies a JAX
   integrity server's digests;
-- every refused config field and method raises and names what it asks
-  for (the speculative step arguments are served since the port has
-  speculative decoding: tests/test_torch_spec.py).
+- every refused config field raises and names what it asks for (the
+  speculative step arguments are served since the port has speculative
+  decoding: tests/test_torch_spec.py; server-side decode since it has
+  decode_n: tests/test_torch_decode_n.py).
 """
 
 import random
@@ -49,7 +50,6 @@ from bloombee_tpu.swarm.spans import compute_spans as jax_compute_spans
 from bloombee_tpu_torch.client import (
     ClientConfig,
     DistributedModelForCausalLM,
-    InferenceSession,
     RemoteSequenceManager,
 )
 from bloombee_tpu_torch.client import integrity
@@ -410,8 +410,7 @@ def test_integrity_client_through_jax_integrity_server(loop, tiny_model_dir,
 
 # --------------------------------------------------------------- refusals
 @pytest.mark.parametrize("field,value,item", [
-    ("server_decode", True, "11"), ("active_adapter", "lora-a", "16"),
-    ("audit_p", 0.1, "19"),
+    ("active_adapter", "lora-a", "16"), ("audit_p", 0.1, "19"),
 ])
 def test_refused_config_fields(field, value, item):
     with pytest.raises(ValueError, match=f"{field}.*item {item}"):
@@ -422,38 +421,11 @@ def test_refused_config_fields(field, value, item):
         config.validate()
 
 
-@pytest.mark.parametrize("call,name,item", [
-    (lambda s: s.decode_n(np.zeros(1), 4), "decode_n", "11"),
-])
-def test_refused_session_calls(call, name, item):
-    """Refused before the session touches its manager or the wire."""
-    session = InferenceSession(None, 16, embed_fn=lambda ids: ids)
-    with pytest.raises(NotImplementedError, match=f"{name}.*item {item}"):
-        run_now(call(session))
-
-
-def test_refused_rewind_and_server_decode():
-    session = InferenceSession(None, 16, embed_fn=lambda ids: ids)
-    with pytest.raises(NotImplementedError, match="rewind.*item 11"):
-        session.rewind_decoded_tail(1)
-    model = DistributedModelForCausalLM(
-        None, {}, RemoteSequenceManager(None, "m", 1), device="cpu"
-    )
-    with pytest.raises(NotImplementedError, match="server_decode.*item 11"):
-        run_now(model.generate(np.zeros((1, 2)), server_decode=True))
-
-
 def test_from_pretrained_reads_local_directories_only(tmp_path):
     with pytest.raises(FileNotFoundError, match="local model directory"):
         DistributedModelForCausalLM.from_pretrained(
             "meta-llama/Llama-3-8B", None, device="cpu"
         )
-
-
-def run_now(coro):
-    import asyncio
-
-    return asyncio.run(coro)
 
 
 # ---------------------------------------------------------------- sampling

@@ -700,9 +700,9 @@ def test_tree_gather_predicates_match_jax(mixed_batch, spec_batch,
 
 
 def test_remaining_step_refusals_and_spec_env():
-    """Speculative keys are served now; chained decode_n is still refused
-    (ROADMAP item 11)."""
-    assert set(t_server.REFUSED_STEP_KEYS) == {"chain", "decode_n"}
+    """Speculative keys are served, and so are chained decode_n's since
+    the server serves decode_n: no step key is refused any more."""
+    assert not hasattr(t_server, "REFUSED_STEP_KEYS")
     from bloombee_tpu_torch.utils import env
 
     for name in ("BBTPU_SPEC_BATCH", "BBTPU_PRUNER_METHOD",
