@@ -4,7 +4,9 @@ bloombee_tpu/cli/run_server.py).
     python -m bloombee_tpu_torch.cli.run_server /path/to/model \\
         --registry 10.0.0.1:7700 --blocks 0:16 --port 7800
 
-The model is a local HF directory (config.json + safetensors); the span's
+The model is a local HF directory (config.json + safetensors) of a family
+the port serves (Llama, Mistral, Qwen2, Qwen3; any other exits non-zero
+with its ROADMAP item before anything is announced); the span's
 layers load onto `--device` (cuda unless asked for cpu, which raises on a
 machine without a GPU). The command line of a JAX deployment starts a
 port server unchanged as long as it leaves the JAX-only flags at their
@@ -201,6 +203,14 @@ def main(argv=None):
             f"{args.model_dir!r} is not a local model directory (hub names "
             f"are resolved by ROADMAP Queue 1 item 19)"
         )
+    from bloombee_tpu_torch.models.checkpoint import load_spec
+
+    try:
+        # a family the port does not serve yet is refused before any
+        # weight loads or anything is announced
+        load_spec(args.model_dir)
+    except NotImplementedError as e:
+        p.error(str(e))
     logging.basicConfig(level=args.log_level)
 
     import torch

@@ -1,0 +1,96 @@
+"""Model family registry (port of bloombee_tpu/models/auto.py).
+
+Keyed by the HF `model_type`: each family maps a config to a ModelSpec and
+loads one layer's parameters from a checkpoint. The port serves the
+Llama-structured families (llama, mistral, qwen2, qwen3). Every other
+family the JAX package serves raises NotImplementedError naming what it
+needs (`UNPORTED`, ROADMAP Queue 1 item 15); a model_type neither package
+knows raises KeyError.
+"""
+
+from __future__ import annotations
+
+from types import SimpleNamespace
+from typing import Any, Callable
+
+from bloombee_tpu_torch.models.spec import ModelSpec
+
+_REGISTRY: dict[str, "Family"] = {}
+
+# model_type -> what the port lacks to serve it
+UNPORTED = {
+    "gemma2": "head_dim 256 (outside the CUDA kernels' domain), sandwich "
+              "norms, the tanh-GELU MLP, attention and final logit "
+              "soft-caps and the embedding multiplier",
+    "gemma4": "heterogeneous attention layers (runtime/hetero.py)",
+    "bloom": "ALiBi (ops/alibi.py), LayerNorm and biased projections",
+    "falcon": "LayerNorm, the parallel attention residual and fused QKV",
+    "mixtral": "the MoE MLP (ops/moe.py)",
+    "qwen3_moe": "the MoE MLP (ops/moe.py)",
+}
+
+
+class Family:
+    """One model family: `spec_fn(config) -> ModelSpec` and a per-layer
+    `loader(reader, layer_idx, dtype=, device=) -> dict`. Every served
+    family keeps its embeddings, final norm and head under the Llama
+    names (`checkpoint.load_client_params`)."""
+
+    def __init__(
+        self,
+        name: str,
+        spec_fn: Callable[[Any], ModelSpec],
+        loader: Callable,
+    ):
+        self.name = name
+        self._spec_fn = spec_fn
+        self._loader = loader
+
+    def spec_from_config_dict(self, config: dict) -> ModelSpec:
+        return self._spec_fn(SimpleNamespace(**config))
+
+    def load_block_params(self, reader, layer_idx: int, dtype=None,
+                          device="cuda") -> dict:
+        return self._loader(reader, layer_idx, dtype=dtype, device=device)
+
+
+def register_family(family: Family) -> None:
+    _REGISTRY[family.name] = family
+
+
+def get_family(model_type: str) -> Family:
+    if model_type in UNPORTED:
+        raise NotImplementedError(
+            f"model family {model_type!r} needs {UNPORTED[model_type]}, "
+            f"which the port does not have yet (ROADMAP Queue 1 item 15)"
+        )
+    if model_type not in _REGISTRY:
+        raise KeyError(
+            f"unknown model family {model_type!r}; known: {sorted(_REGISTRY)}"
+        )
+    return _REGISTRY[model_type]
+
+
+def spec_from_hf_config(config: Any) -> ModelSpec:
+    return get_family(config.model_type)._spec_fn(config)
+
+
+def spec_from_config_dict(config: dict) -> ModelSpec:
+    return get_family(config.get("model_type", "llama")).spec_from_config_dict(
+        config
+    )
+
+
+# ---------------------------------------------------------------- built-ins
+def _register_builtins() -> None:
+    from bloombee_tpu_torch.models.llama.block import load_hf_block
+    from bloombee_tpu_torch.models.llama.config import llama_spec_from_hf
+
+    register_family(Family("llama", llama_spec_from_hf, load_hf_block))
+    # side-effect registrations
+    import bloombee_tpu_torch.models.mistral  # noqa: F401
+    import bloombee_tpu_torch.models.qwen2  # noqa: F401
+    import bloombee_tpu_torch.models.qwen3  # noqa: F401
+
+
+_register_builtins()

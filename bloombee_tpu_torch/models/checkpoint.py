@@ -1,10 +1,13 @@
-"""HF checkpoint reading for the port, Llama only (port of
-bloombee_tpu/models/checkpoint.py).
+"""HF checkpoint reading for the port (port of
+bloombee_tpu/models/checkpoint.py), for every family of the registry
+(`models.auto`: Llama, Mistral, Qwen2, Qwen3).
 
 A server loads only its span's layers; a client loads only the embeddings,
 the final norm and the LM head. Model directories are local paths
 (config.json + *.safetensors [+ index]). `safetensors` is imported inside the
-reader, so the package imports where it is not installed.
+reader, so the package imports where it is not installed. A checkpoint of a
+family the port does not serve yet raises NotImplementedError before any
+weight is read.
 """
 
 from __future__ import annotations
@@ -14,11 +17,6 @@ import pathlib
 
 import torch
 
-from bloombee_tpu_torch.models.llama.block import (
-    HF_BLOCK_KEYS,
-    convert_hf_block_params,
-)
-from bloombee_tpu_torch.models.llama.config import llama_spec_from_config_dict
 from bloombee_tpu_torch.models.spec import ModelSpec
 from bloombee_tpu_torch.utils.device import resolve_device
 
@@ -66,18 +64,19 @@ class CheckpointReader:
         return self.config.get("model_type", "llama")
 
 
-def _llama(reader: CheckpointReader) -> None:
-    if reader.model_type() != "llama":
-        raise NotImplementedError(
-            f"the port loads llama checkpoints only, not "
-            f"{reader.model_type()!r}"
-        )
+def read_tensor(reader: CheckpointReader, name: str, dtype=None,
+                device="cuda") -> torch.Tensor:
+    """One tensor on `device`, cast to `dtype` when given (the shared
+    helper of the family loaders)."""
+    w = reader.tensor(name)
+    return w.to(device=resolve_device(device), dtype=dtype).contiguous()
 
 
 def load_spec(model_dir: str) -> ModelSpec:
-    reader = CheckpointReader(model_dir)
-    _llama(reader)
-    return llama_spec_from_config_dict(reader.config)
+    """ModelSpec from a local model dir via the family registry."""
+    from bloombee_tpu_torch.models.auto import spec_from_config_dict
+
+    return spec_from_config_dict(CheckpointReader(model_dir).config)
 
 
 def load_span_params(
@@ -85,27 +84,27 @@ def load_span_params(
 ) -> tuple[list[dict], ModelSpec]:
     """Per-layer params for blocks [start, end) (a list of dicts) and the
     model's spec."""
+    from bloombee_tpu_torch.models.auto import get_family
+
     device = resolve_device(device)
     reader = CheckpointReader(model_dir)
-    _llama(reader)
-    layers = []
-    for i in range(start, end):
-        tensors = {
-            key: reader.tensor(f"model.layers.{i}.{key}")
-            for key in HF_BLOCK_KEYS
-        }
-        layers.append(
-            convert_hf_block_params(tensors, dtype=dtype, device=device)
-        )
-    return layers, llama_spec_from_config_dict(reader.config)
+    family = get_family(reader.model_type())
+    spec = family.spec_from_config_dict(reader.config)
+    layers = [
+        family.load_block_params(reader, i, dtype=dtype, device=device)
+        for i in range(start, end)
+    ]
+    return layers, spec
 
 
 def load_client_params(model_dir: str, dtype=None, device="cuda") -> dict:
     """Embeddings + final norm + LM head ([D, V]; the embedding's transpose
     when the checkpoint ties them)."""
+    from bloombee_tpu_torch.models.auto import get_family
+
     device = resolve_device(device)
     reader = CheckpointReader(model_dir)
-    _llama(reader)
+    get_family(reader.model_type())  # an unported family raises here
     embed = reader.tensor("model.embed_tokens.weight")
     norm = reader.tensor("model.norm.weight")
     if reader.has("lm_head.weight"):

@@ -1,5 +1,9 @@
-"""Llama transformer block as a plain function (port of
-bloombee_tpu/models/llama/block.py).
+"""The Llama-structured transformer block as a plain function (port of
+bloombee_tpu/models/llama/block.py), shared by the Llama-like families:
+Mistral (the same block), Qwen2 (biased q/k/v projections) and Qwen3
+(per-head q/k RMSNorm before rotary). The family extras are optional
+parameter keys, `{q,k,v}_bias` and `q_norm`/`k_norm`, applied where
+present, as the JAX package's family-generic layer body applies them.
 
 Weight convention (kept from the JAX package): projection matrices are
 stored [in_features, out_features] and applied as `x @ w`, the transpose of
@@ -34,19 +38,22 @@ def init_block_params(
     device="cuda",
 ) -> dict:
     """Random block parameters: N(0, 1/D) projections (drawn in f32 on the
-    generator's device), unit norms. The generator must live on `device`."""
+    generator's device), unit norms. The generator must live on `device`.
+    A Qwen2 spec also gets N(0, 1) q/k/v biases and a `qk_norm` spec unit
+    q/k norms, drawn after the Llama keys so a Llama spec's draws stay as
+    they were."""
     device = resolve_device(device)
     d, i = spec.hidden_size, spec.intermediate_size
     h, kv, hd = spec.num_attention_heads, spec.num_key_value_heads, spec.head_dim
     scale = d**-0.5
 
-    def w(shape):
+    def w(shape, s=scale):
         x = torch.randn(
             shape, generator=generator, device=device, dtype=torch.float32
         )
-        return (x * scale).to(dtype)
+        return (x * s).to(dtype)
 
-    return {
+    params = {
         "input_layernorm": torch.ones((d,), dtype=dtype, device=device),
         "post_attention_layernorm": torch.ones((d,), dtype=dtype, device=device),
         "q_proj": w((d, h * hd)),
@@ -57,6 +64,48 @@ def init_block_params(
         "up_proj": w((d, i)),
         "down_proj": w((i, d)),
     }
+    if spec.family == "qwen2":
+        for name, n in (("q", h * hd), ("k", kv * hd), ("v", kv * hd)):
+            params[f"{name}_bias"] = w((n,), 1.0)
+    if spec.qk_norm:
+        for name in ("q_norm", "k_norm"):
+            params[name] = torch.ones((hd,), dtype=dtype, device=device)
+    return params
+
+
+def proj(x: torch.Tensor, params: dict, key: str) -> torch.Tensor:
+    """`x @ params[key]`, plus the projection's bias where the layer has
+    one (`q_proj` -> `q_bias`)."""
+    y = x @ params[key]
+    b = params.get(f"{key.removesuffix('_proj')}_bias")
+    return y if b is None else y + b
+
+
+def attention_inputs(
+    params: dict,
+    spec: ModelSpec,
+    x: torch.Tensor,  # [..., T, D] normed input
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+):
+    """q [..., T, H, hd] and k, v [..., T, Hkv, hd] of a layer: the
+    (biased) projections, Qwen3's per-head q/k RMSNorm, then rotary on q
+    and k."""
+    lead = x.shape[:-1]
+    q = proj(x, params, "q_proj").reshape(
+        *lead, spec.num_attention_heads, spec.head_dim
+    )
+    k = proj(x, params, "k_proj").reshape(
+        *lead, spec.num_key_value_heads, spec.head_dim
+    )
+    v = proj(x, params, "v_proj").reshape(
+        *lead, spec.num_key_value_heads, spec.head_dim
+    )
+    if spec.qk_norm:
+        q = rms_norm(q, params["q_norm"], spec.rms_norm_eps)
+        k = rms_norm(k, params["k_norm"], spec.rms_norm_eps)
+    q, k = apply_rotary(q, k, cos, sin)
+    return q, k, v
 
 
 def block_forward(
@@ -68,17 +117,12 @@ def block_forward(
     attend: Attend,
 ) -> tuple[torch.Tensor, Any]:
     b, t, _ = hidden.shape
-    h, kv, hd = spec.num_attention_heads, spec.num_key_value_heads, spec.head_dim
-
     x = rms_norm(hidden, params["input_layernorm"], spec.rms_norm_eps)
-    q = (x @ params["q_proj"]).reshape(b, t, h, hd)
-    k = (x @ params["k_proj"]).reshape(b, t, kv, hd)
-    v = (x @ params["v_proj"]).reshape(b, t, kv, hd)
-    q, k = apply_rotary(q, k, cos, sin)
+    q, k, v = attention_inputs(params, spec, x, cos, sin)
 
     attn_out, aux = attend(q, k, v)
 
-    hidden = hidden + attn_out.reshape(b, t, h * hd) @ params["o_proj"]
+    hidden = hidden + proj(attn_out.reshape(b, t, -1), params, "o_proj")
     x = rms_norm(hidden, params["post_attention_layernorm"], spec.rms_norm_eps)
     mlp_out = silu_mlp(
         x, params["gate_proj"], params["up_proj"], params["down_proj"]
@@ -135,10 +179,21 @@ def convert_hf_block_params(
     return out
 
 
+def load_hf_block(reader, layer_idx: int, dtype=None, device="cuda") -> dict:
+    """Layer `layer_idx` of a checkpoint (`models.checkpoint.
+    CheckpointReader`) in the Llama layout: the Llama family's loader, and
+    the base of the other Llama-like families' loaders."""
+    prefix = f"model.layers.{layer_idx}"
+    tensors = {k: reader.tensor(f"{prefix}.{k}") for k in HF_BLOCK_KEYS}
+    return convert_hf_block_params(tensors, dtype=dtype, device=device)
+
+
 def params_from_jax(tree, dtype=None, device="cuda") -> list[dict]:
     """The JAX package's block parameters, given as numpy arrays — a list of
     per-layer dicts, or one dict stacked with a leading L — as the port's
-    list of per-layer dicts of tensors. Same [in, out] layout: a copy."""
+    list of per-layer dicts of tensors. Same [in, out] layout: a copy of
+    every key, the family extras (`{q,k,v}_bias`, `q_norm`/`k_norm`)
+    included."""
     device = resolve_device(device)
 
     def conv(x):

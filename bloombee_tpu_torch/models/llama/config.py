@@ -1,8 +1,8 @@
-"""Llama family config mapping (port of bloombee_tpu/models/llama/config.py)."""
+"""Llama family config mapping (port of bloombee_tpu/models/llama/config.py;
+registered in `models.auto`)."""
 
 from __future__ import annotations
 
-from types import SimpleNamespace
 from typing import Any
 
 from bloombee_tpu_torch.models.spec import ModelSpec
@@ -29,7 +29,3 @@ def llama_spec_from_hf(config: Any) -> ModelSpec:
         max_position_embeddings=getattr(config, "max_position_embeddings", 4096),
     )
 
-
-def llama_spec_from_config_dict(config: dict) -> ModelSpec:
-    """ModelSpec from a parsed config.json (what `load_spec` reads)."""
-    return llama_spec_from_hf(SimpleNamespace(**config))

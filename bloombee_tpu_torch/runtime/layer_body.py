@@ -1,8 +1,11 @@
-"""Transformer layer body of the paged span step, Llama spec (port of
+"""Transformer layer body of the paged span step for the Llama-structured
+families: Llama, Mistral, Qwen2 and Qwen3 (port of
 bloombee_tpu/runtime/layer_body.py).
 
-RMSNorm, the projections, rotary, the K/V scatter into the paged arena,
-attention and the SiLU MLP. Attention routes three ways, as in the JAX
+RMSNorm, the projections (with Qwen2's q/k/v biases where the layer has
+them), Qwen3's per-head q/k RMSNorm, rotary, the K/V scatter into the paged
+arena, attention and the SiLU MLP. Sliding windows (Mistral) arrive per
+layer from the executor. Attention routes three ways, as in the JAX
 package, on flags the executor sets per step:
 
 - `use_paged`: the paged kernels read K/V straight off the arena (decode for
@@ -16,13 +19,14 @@ package, on flags the executor sets per step:
 sessions packed as [1, R, D]): the ragged kernel when `use_kernel` is set,
 else the dense `attend_ragged` over every member's gathered pages.
 
-`dense_block_forward` is the Llama block over caller-supplied attention
-and no arena (`models.llama.block.block_forward`; the speculative
-drafter's path).
+`dense_block_forward` is the same block over caller-supplied attention and
+no arena (`models.llama.block.block_forward`; the speculative drafter's
+path).
 
-LoRA, top-k sparse attention, ALiBi and logit soft-capping are left out of
-this slice; the executor and the drafter refuse specs that need them
-(`unsupported`, `dense_unsupported`).
+The other families' structure (MoE, LayerNorm, ALiBi, parallel or sandwich
+residuals, soft-caps, heterogeneous layers), LoRA and top-k sparse
+attention are left out; the executor and the drafter refuse specs that
+need them (`unsupported`, `dense_unsupported`), naming ROADMAP Queue 1.
 """
 
 from __future__ import annotations
@@ -31,9 +35,13 @@ import torch
 
 from bloombee_tpu_torch.kv.arena import arena_write, gather_pages
 from bloombee_tpu_torch.kv.quant import QuantSlab
-from bloombee_tpu_torch.models.llama.block import block_forward
+from bloombee_tpu_torch.models.llama.block import (
+    attention_inputs,
+    block_forward,
+    proj,
+)
 from bloombee_tpu_torch.models.spec import ModelSpec
-from bloombee_tpu_torch.ops import apply_rotary, rms_norm, silu_mlp
+from bloombee_tpu_torch.ops import rms_norm, silu_mlp
 from bloombee_tpu_torch.ops.attention import NEG_INF, repeat_kv
 from bloombee_tpu_torch.ops.cuda.flash_attention import flash_attention
 from bloombee_tpu_torch.ops.cuda.paged_attention import (
@@ -92,14 +100,22 @@ def attend_paged(
 
 
 def unsupported(spec: ModelSpec) -> str | None:
-    """Why this slice's layer body cannot serve `spec`; None when it can
-    (Llama-structured blocks only)."""
+    """Why this layer body cannot serve `spec`, naming the ROADMAP item
+    that ports it; None when it can (Llama-structured blocks, with or
+    without q/k/v biases, q/k norms and sliding windows)."""
+    reason = _unported_structure(spec)
+    return None if reason is None else (
+        f"{reason} (ROADMAP Queue 1 item 15)"
+    )
+
+
+def _unported_structure(spec: ModelSpec) -> str | None:
     if spec.heterogeneous:
         return "heterogeneous head_dim layers"
     if spec.norm_type != "rms" or spec.mlp_type != "silu":
         return f"{spec.norm_type} norm / {spec.mlp_type} MLP"
-    if spec.num_experts or spec.qk_norm or spec.k_eq_v_full:
-        return "MoE / qk-norm / shared K=V projections"
+    if spec.num_experts or spec.k_eq_v_full:
+        return "MoE / shared K=V projections"
     if spec.alibi or spec.attn_logit_softcap:
         return "ALiBi / attention logit soft-cap"
     if spec.parallel_attn or spec.sandwich_norms:
@@ -114,8 +130,7 @@ def dense_unsupported(spec: ModelSpec) -> str | None:
     drafter's path); None when it can. JAX's attend-injection limits come
     first (the caller supplies attention, so position bias, sliding
     windows and logit soft-caps would silently drop), then what this
-    layer body lacks (ROADMAP Queue 1 item 15: Llama-structured blocks
-    only)."""
+    layer body lacks (`unsupported`)."""
     if spec.alibi:
         return "ALiBi bias lives inside attention"
     if spec.layer_types and "sliding" in spec.layer_types:
@@ -178,10 +193,7 @@ def layer_body(
         spec.head_dim,
     )
     x = rms_norm(hidden, params["input_layernorm"], spec.rms_norm_eps)
-    q = (x @ params["q_proj"]).reshape(b, t, h_heads, hd)
-    k = (x @ params["k_proj"]).reshape(b, t, kv_heads, hd)
-    v = (x @ params["v_proj"]).reshape(b, t, kv_heads, hd)
-    q, k = apply_rotary(q, k, cos, sin)
+    q, k, v = attention_inputs(params, spec, x, cos, sin)
 
     arena_write(
         k_slab, v_slab, None,
@@ -218,7 +230,7 @@ def layer_body(
                 spec, q, k_ctx, v_ctx, q_positions, total_lens, tree_mask,
                 window,
             )
-    attn_out = attn.reshape(b, t, h_heads * hd) @ params["o_proj"]
+    attn_out = proj(attn.reshape(b, t, h_heads * hd), params, "o_proj")
     return _finish_layer(spec, params, hidden, attn_out)
 
 
@@ -297,10 +309,7 @@ def layer_body_ragged(
         spec.head_dim,
     )
     x = rms_norm(hidden, params["input_layernorm"], spec.rms_norm_eps)
-    q = (x @ params["q_proj"]).reshape(1, r, h_heads, hd)
-    k = (x @ params["k_proj"]).reshape(1, r, kv_heads, hd)
-    v = (x @ params["v_proj"]).reshape(1, r, kv_heads, hd)
-    q, k = apply_rotary(q, k, cos, sin)
+    q, k, v = attention_inputs(params, spec, x, cos, sin)
 
     arena_write(
         k_slab, v_slab, None, k.reshape(r, kv_heads, hd),
@@ -319,7 +328,7 @@ def layer_body_ragged(
             spec, q[0], k_ctx, v_ctx, q_positions[0], q_seq, total_lens,
             window, nt=nt, tree_rows=tree_rows,
         )
-    attn_out = attn.reshape(1, r, h_heads * hd) @ params["o_proj"]
+    attn_out = proj(attn.reshape(1, r, h_heads * hd), params, "o_proj")
     return _finish_layer(spec, params, hidden, attn_out)
 
 

@@ -60,7 +60,8 @@ class LocalDraftModel:
     @classmethod
     def from_dir(cls, model_dir: str, dtype=None,
                  device="cuda") -> "LocalDraftModel":
-        """The whole model of a local Llama checkpoint directory."""
+        """The whole model of a local checkpoint directory of a family the
+        registry serves (`models.auto`)."""
         from bloombee_tpu_torch.models.checkpoint import (
             load_client_params,
             load_span_params,

@@ -181,6 +181,31 @@ Phases:
    servers' launch counts (`rpc_info` `kernel_launches`, path "cli");
    `cli.health --probe` lists both spans ONLINE; SIGTERM stops each
    server with exit code 0.
+10. The Llama-like families through the port's registry (published
+   configs mapped by `models.auto`, random bf16 weights), each served by
+   two port BlockServers (`max_batch=1`) and the port client, after the
+   Llama phases' weights are freed; launch counts reset and read around
+   each run's sessions (paths "family_qwen3", "family_qwen2",
+   "family_mistral"):
+   (a) Qwen3-8B at published width and depth (36 layers, q/k norms),
+       [0, 18) + [18, 36): 2 sessions of 32 tokens from 1000-token
+       prompts and a 24-token follow-up with 2 more; tokens identical to
+       the solo executor, held teacher-forced against an f32 truth;
+       flash, paged decode and chunk launched at the counts the path
+       implies;
+   (b) Qwen2.5-3B at published width, 4 layers (q/k/v biases, tied
+       embeddings), written as a `qwen2` checkpoint: servers built from
+       the directory, the client from `from_pretrained`, the same
+       sessions; tokens identical to a solo executor over the
+       checkpoint's weights;
+   (c) Mistral-7B-v0.1 at published width, 2 layers, window 4096: 2
+       sessions of 32 tokens from 4400-token prompts prefilled in
+       64-token chunks (`prefill_chunk=64`), so the chunk and decode
+       kernels carry the window; tokens identical to the solo executor,
+       held teacher-forced against an f32 truth on the dense route; no
+       flash launch.
+   Prints each run's time to first token and per-token medians and the
+   card's name and power limit.
 
 Prints the card's name and power limit, per-phase results, a
 `{"kernels": [...]}` line, and as its last line
@@ -1608,11 +1633,12 @@ class ServerLoop:
 
 
 async def start_span_servers(layers, spec, uid, spans, dtype, num_pages,
-                             reg=None, **server_kw):
+                             reg=None, model_dir=None, **server_kw):
     """A port registry (or `reg`, already running) and one port BlockServer
     per span [(start, end)] on the card, over slices of `layers` (shared
-    tensors, no copy); `server_kw` (max_batch, mixed_batch,
-    prefill_chunk, prefix_cache, session_lease_s) goes to each."""
+    tensors, no copy) or, given `model_dir`, each loading its span from
+    that checkpoint; `server_kw` (max_batch, mixed_batch, prefill_chunk,
+    prefix_cache, session_lease_s) goes to each."""
     from bloombee_tpu_torch.server.block_server import BlockServer
     from bloombee_tpu_torch.swarm.registry import (
         RegistryClient,
@@ -1625,8 +1651,10 @@ async def start_span_servers(layers, spec, uid, spans, dtype, num_pages,
     servers = []
     for start, end in spans:
         server = BlockServer(
-            model_uid=uid, start=start, end=end, params=layers[start:end],
-            spec=spec, registry=RegistryClient("127.0.0.1", reg.port),
+            model_uid=uid, start=start, end=end,
+            params=None if model_dir else layers[start:end],
+            spec=None if model_dir else spec, model_dir=model_dir,
+            registry=RegistryClient("127.0.0.1", reg.port),
             num_pages=num_pages, page_size=PS, compute_dtype=dtype,
             max_chunk_tokens=512, throughput=1.0, device="cuda",
             **server_kw,
@@ -2188,7 +2216,8 @@ class ReplayWatch:
 
 
 def served_reference(layers, spec, local, prompts, follows, n_new,
-                     feed=None, chunk=0, dtype=None):
+                     feed=None, chunk=0, dtype=None, max_len=1100,
+                     dense=False):
     """The sessions (one per prompt: a [n, L] tensor or a list of [L_i]
     tensors) solo on one in-process SpanExecutor with the server's
     calls (prefill for T>1, in `chunk`-token chunks as a chunking server
@@ -2198,9 +2227,13 @@ def served_reference(layers, spec, local, prompts, follows, n_new,
     decode feeds the
     reference's own greedy token (the client's head on the executor's
     output gathered in f32) or, teacher-forced, `feed[i]`: the tokens the
-    served run chose. Returns per session (last-position hidden states
-    [n_new (+ 2), D] f32, the reference's greedy tokens) and the decode
-    steps' wall times."""
+    served run chose. Sessions hold up to `max_len` tokens; `dense` builds
+    the executor with BBTPU_PAGED_MIN_CONTEXT past any context, so every
+    step takes the dense attention route. Returns per session
+    (last-position hidden states [n_new (+ 2), D] f32, the reference's
+    greedy tokens) and the decode steps' wall times."""
+    import os
+
     import torch
 
     from bloombee_tpu_torch.kv.cache_manager import CacheManager
@@ -2208,10 +2241,19 @@ def served_reference(layers, spec, local, prompts, follows, n_new,
 
     bf16, n_layers = torch.bfloat16, spec.num_hidden_layers
     dtype = dtype or bf16
-    manager = CacheManager(n_layers, 1024, PS, HKV, HD, dtype=dtype,
-                           device="cuda")
-    ex = SpanExecutor(layers, spec, manager, max_chunk_tokens=512,
-                      compute_dtype=dtype, device="cuda")
+    manager = CacheManager(n_layers, 1024, PS, spec.num_key_value_heads,
+                           spec.head_dim, dtype=dtype, device="cuda")
+    saved = os.environ.get("BBTPU_PAGED_MIN_CONTEXT")
+    if dense:
+        os.environ["BBTPU_PAGED_MIN_CONTEXT"] = str(1 << 30)
+    try:
+        ex = SpanExecutor(layers, spec, manager, max_chunk_tokens=512,
+                          compute_dtype=dtype, device="cuda")
+    finally:
+        if saved is None:
+            os.environ.pop("BBTPU_PAGED_MIN_CONTEXT", None)
+        else:
+            os.environ["BBTPU_PAGED_MIN_CONTEXT"] = saved
     sessions, step_s = [], []
 
     def embed(ids):
@@ -2237,7 +2279,7 @@ def served_reference(layers, spec, local, prompts, follows, n_new,
             def nxt(k, tokens):
                 return tokens[-1] if fed is None else fed[k : k + 1]
 
-            async with manager.allocate(1, 1100) as h:
+            async with manager.allocate(1, max_len) as h:
                 prompt = embed(prompts[i][None])
                 outs = [
                     ex.prefill_chunked(h, prompt, chunk, fetch=False)
@@ -3658,11 +3700,22 @@ def dn_fused_vs_stepped(layers, spec, client, gen, rounds: int = 2) -> dict:
 CLI_LAYERS = 8
 
 
-def write_checkpoint(path: pathlib.Path, spec, seed: int) -> None:
-    """A random Llama checkpoint at `spec`'s width and depth in the HF
-    layout (config.json, one safetensors file per layer plus one for the
+# the family extras of a layer: the port's key -> its HF suffix
+HF_EXTRA_KEYS = {
+    "q_bias": "self_attn.q_proj.bias", "k_bias": "self_attn.k_proj.bias",
+    "v_bias": "self_attn.v_proj.bias", "q_norm": "self_attn.q_norm.weight",
+    "k_norm": "self_attn.k_norm.weight",
+}
+
+
+def write_checkpoint(path: pathlib.Path, spec, seed: int,
+                     config: dict | None = None) -> None:
+    """A random checkpoint at `spec`'s width and depth in the HF layout
+    (config.json, one safetensors file per layer plus one for the
     embeddings, final norm and head, an index), written a layer at a
-    time."""
+    time. `config` is the config.json to write (default: a Llama one from
+    `spec`); the layers carry the family's extras (`init_block_params`),
+    and a tied spec writes no lm_head."""
     import torch
     from safetensors.torch import save_file
 
@@ -3673,7 +3726,7 @@ def write_checkpoint(path: pathlib.Path, spec, seed: int) -> None:
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     d, vocab = spec.hidden_size, spec.vocab_size
-    config = {
+    config = config or {
         "model_type": "llama", "architectures": ["LlamaForCausalLM"],
         "hidden_size": d, "intermediate_size": spec.intermediate_size,
         "num_attention_heads": spec.num_attention_heads,
@@ -3695,23 +3748,29 @@ def write_checkpoint(path: pathlib.Path, spec, seed: int) -> None:
     for i in range(spec.num_hidden_layers):
         layer = init_block_params(gen, spec, dtype=torch.bfloat16,
                                   device="cuda")
-        save({
+        tensors = {
             f"model.layers.{i}.{key}": (
                 layer[name].t() if transpose else layer[name]
             )
             for key, (name, transpose) in HF_BLOCK_KEYS.items()
-        }, f"layer-{i:02d}.safetensors")
-        del layer
-    save({
+        }
+        tensors.update({f"model.layers.{i}.{key}": layer[name]
+                        for name, key in HF_EXTRA_KEYS.items()
+                        if name in layer})
+        save(tensors, f"layer-{i:02d}.safetensors")
+        del layer, tensors
+    head = {
         "model.embed_tokens.weight": torch.randn(
             (vocab, d), generator=gen, device="cuda"
         ).to(torch.bfloat16),
         "model.norm.weight": torch.ones((d,), dtype=torch.bfloat16,
                                         device="cuda"),
-        "lm_head.weight": (
+    }
+    if not spec.tie_word_embeddings:
+        head["lm_head.weight"] = (
             torch.randn((vocab, d), generator=gen, device="cuda") * d**-0.5
-        ).to(torch.bfloat16),
-    }, "head.safetensors")
+        ).to(torch.bfloat16)
+    save(head, "head.safetensors")
     (path / "model.safetensors.index.json").write_text(
         json.dumps({"metadata": {}, "weight_map": weight_map})
     )
@@ -3967,6 +4026,347 @@ def phase_cli(gen) -> dict:
     return {"cli": cli_launches}
 
 
+# ------------------------------------------------------------- phase 10
+# published HF configs (each model's config.json on the hub), the fields
+# the port's registry reads; random weights, depth cut per run
+FAMILY_CONFIGS = {
+    "qwen3-8b": {  # Qwen/Qwen3-8B
+        "model_type": "qwen3", "architectures": ["Qwen3ForCausalLM"],
+        "hidden_size": 4096, "intermediate_size": 12288,
+        "num_attention_heads": 32, "num_key_value_heads": 8,
+        "head_dim": 128, "num_hidden_layers": 36, "vocab_size": 151936,
+        "rms_norm_eps": 1e-6, "rope_theta": 1000000.0,
+        "max_position_embeddings": 40960, "tie_word_embeddings": False,
+        "use_sliding_window": False, "sliding_window": None,
+        "torch_dtype": "bfloat16",
+    },
+    "qwen2.5-3b": {  # Qwen/Qwen2.5-3B
+        "model_type": "qwen2", "architectures": ["Qwen2ForCausalLM"],
+        "hidden_size": 2048, "intermediate_size": 11008,
+        "num_attention_heads": 16, "num_key_value_heads": 2,
+        "num_hidden_layers": 36, "vocab_size": 151936,
+        "rms_norm_eps": 1e-6, "rope_theta": 1000000.0,
+        "max_position_embeddings": 32768, "tie_word_embeddings": True,
+        "use_sliding_window": False, "sliding_window": 32768,
+        "torch_dtype": "bfloat16",
+    },
+    "mistral-7b-v0.1": {  # mistralai/Mistral-7B-v0.1
+        "model_type": "mistral", "architectures": ["MistralForCausalLM"],
+        "hidden_size": 4096, "intermediate_size": 14336,
+        "num_attention_heads": 32, "num_key_value_heads": 8,
+        "num_hidden_layers": 32, "vocab_size": 32000, "rms_norm_eps": 1e-5,
+        "rope_theta": 10000.0, "max_position_embeddings": 32768,
+        "sliding_window": 4096, "tie_word_embeddings": False,
+        "torch_dtype": "bfloat16",
+    },
+}
+
+
+def family_config(name: str, layers: int) -> tuple[dict, object]:
+    """A published config cut to `layers` and the port registry's spec of
+    it."""
+    from bloombee_tpu_torch.models.auto import spec_from_config_dict
+
+    config = {**FAMILY_CONFIGS[name], "num_hidden_layers": layers}
+    return config, spec_from_config_dict(config)
+
+
+def family_run(uid, spec, prompts, follows, n_new, server_kw, layers=None,
+               client=None, model_dir=None) -> dict:
+    """A port registry and two port BlockServers (`max_batch=1` plus
+    `server_kw`) over the halves of the model, on a ServerLoop: over
+    in-memory `layers`, or each built from `model_dir`. The port client
+    (over `client` or, given `model_dir`, `from_pretrained`) opens one
+    session per prompt; the sessions concurrently `generate` n_new tokens,
+    then (unless `follows` is None) a follow-up turn with 2 more. Launch
+    counts are reset just before the sessions step and read just after.
+    Returns the tokens, each session's last-position outputs, time to
+    first token, per-token median and the launches."""
+    import torch
+
+    from bloombee_tpu_torch.client import (
+        ClientConfig,
+        DistributedModelForCausalLM,
+    )
+    from bloombee_tpu_torch.ops.cuda import build
+    from bloombee_tpu_torch.swarm.registry import RegistryClient
+
+    n = spec.num_hidden_layers
+    spans = ((0, n // 2), (n // 2, n))
+    max_len = prompts.shape[1] + n_new + (0 if follows is None else 32)
+
+    def model_for(reg_port):
+        if model_dir is None:
+            return port_client(client, spec, reg_port, uid)
+        return DistributedModelForCausalLM.from_pretrained(
+            str(model_dir), RegistryClient("127.0.0.1", reg_port),
+            model_uid=uid, device="cuda",
+            config=ClientConfig(use_push=True),
+        )
+
+    async def one(model, session, i):
+        ids = await model.generate(prompts[i : i + 1], max_new_tokens=n_new,
+                                   session=session)
+        toks = [ids[0, -n_new:]]
+        if follows is not None:
+            more = await model.generate(follows[i : i + 1], max_new_tokens=2,
+                                        session=session)
+            toks.append(more[0, -2:])
+        return torch.cat(toks).cpu()
+
+    async def sessions(reg_port):
+        models = [model_for(reg_port) for _ in prompts]
+        try:
+            async with contextlib.AsyncExitStack() as stack:
+                opened = [
+                    await stack.enter_async_context(
+                        m.inference_session(max_len, 1)
+                    )
+                    for m in models
+                ]
+                recs = [tap(s, m) for s, m in zip(opened, models)]
+                torch.cuda.synchronize()
+                build.reset_launch_counts()
+                t0 = time.perf_counter()
+                tokens = await asyncio.gather(*(
+                    one(m, s, i)
+                    for i, (m, s) in enumerate(zip(models, opened))
+                ))
+                torch.cuda.synchronize()
+                wall_s = time.perf_counter() - t0
+                launches = dict(build.LAUNCHES)
+        finally:
+            for m in models:
+                await m.manager.registry.close()
+
+        def gaps(ts):
+            return [(b - a) * 1e3 for a, b in zip(ts, ts[1:])]
+
+        return {
+            "tokens": tokens, "launches": launches, "wall_s": wall_s,
+            "lasts": [torch.cat([o[:, -1] for o in r["outs"]]).float()
+                      for r in recs],
+            "ttft_ms": [gaps(r["embeds"][:2])[0] for r in recs],
+            "per_token_ms_median": [
+                sorted(gaps(r["embeds"][1:n_new]))[(n_new - 2) // 2]
+                for r in recs
+            ],
+        }
+
+    with ReplayWatch() as watch, ServerLoop() as servers_loop:
+        reg, servers = servers_loop.run(start_span_servers(
+            layers, spec, uid, spans, torch.bfloat16, 1024,
+            model_dir=None if model_dir is None else str(model_dir),
+            max_batch=1, **server_kw,
+        ))
+        try:
+            out = asyncio.run(sessions(reg.port))
+        finally:
+            servers_loop.run(stop_span_servers(reg, servers))
+            del servers
+    out["replays"] = list(watch.seen)
+    torch.cuda.empty_cache()
+    return out
+
+
+def paged_prefill_chunks(prompt_len: int, chunk: int) -> int:
+    """How many of a chunking server's prefill chunks take the paged chunk
+    kernel at the default BBTPU_PAGED_MIN_CONTEXT (512): those whose
+    context's page bucket covers 512 tokens (`SpanExecutor._step`)."""
+    from bloombee_tpu_torch.runtime.executor import (
+        next_pow2,
+        plan_prefill_chunks,
+    )
+
+    return sum(
+        1 for _, e in plan_prefill_chunks(prompt_len, chunk, cap=512)
+        if next_pow2(-(-e // PS), floor=4) * PS >= 512
+    )
+
+
+def phase_families() -> dict:
+    """Phase 10: the Llama-like families through the port's registry,
+    served by two port BlockServers (`max_batch=1`, 1024-page arenas) and
+    the port client, each run's launch counts reset and read around its
+    sessions (paths "family_qwen3", "family_qwen2", "family_mistral"):
+
+    (a) Qwen3-8B at published width and depth (36 layers, bf16, random
+        weights with unit q/k norms), spans [0, 18) and [18, 36): 2
+        sessions of 1000-token prompts generate 32 tokens, then a 24-token
+        follow-up with 2 more. Tokens identical to the sessions solo on
+        one executor, held teacher-forced against an f32 truth
+        (`hold_teacher_forced`); flash = 2 a layer per session (512 + 488),
+        paged decode = n_new a layer per session, chunk = 1 a layer per
+        session (the follow-up).
+    (b) Qwen2.5-3B at published width, 4 layers, tied embeddings and q/k/v
+        biases, written as a `qwen2` checkpoint: servers built from the
+        directory, the client from `from_pretrained`; the same sessions
+        and launch counts; tokens identical to an in-process solo executor
+        over the same checkpoint.
+    (c) Mistral-7B-v0.1 at published width, 2 layers, window 4096: 2
+        sessions of 4400-token prompts through `prefill_chunk=64` servers
+        (the chunk kernel carries the window past 4096 tokens), then 32
+        tokens (the decode kernel carries it). Tokens identical to the
+        solo executor (same chunks), held teacher-forced against an f32
+        truth on the dense route; chunk launches = the chunks past the
+        paged threshold, decode = 31 a layer per session, no flash.
+
+    Prints each run's time to first token and per-token medians and the
+    card's name and power limit; returns the launches by path."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    from bloombee_tpu_torch.client import DistributedModelForCausalLM
+    from bloombee_tpu_torch.models.checkpoint import (
+        load_client_params,
+        load_span_params,
+    )
+
+    t_phase = time.perf_counter()
+    # the earlier phases' models and servers sit in reference cycles:
+    # collect them before Qwen3-8B and its f32 truth (~46 GiB together)
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"[families] {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"allocated before the phase")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    by_path, failures = {}, []
+    n_new, sessions = 32, 2
+
+    def check(path, run, spec, ref_tokens, want, held=None):
+        launches = by_path[path] = run["launches"]
+        same = all(torch.equal(t, r) for t, r in zip(run["tokens"],
+                                                      ref_tokens))
+        finite = all(torch.isfinite(x).all().item() for x in run["lasts"])
+        got = {k: launches.get(k, 0) for k in want}
+        stats = {
+            "layers": spec.num_hidden_layers, "window": spec.sliding_window,
+            "tokens_identical_to_solo_executor": same, "finite": finite,
+            "ttft_ms": [round(x, 2) for x in run["ttft_ms"]],
+            "per_token_ms_median": [round(x, 3)
+                                    for x in run["per_token_ms_median"]],
+            "run_s": round(run["wall_s"], 3), "launches": launches,
+            "launches_want": want, "replays": len(run["replays"]),
+        }
+        if held is not None:
+            stats["held"] = held
+        say(f"[{path}] " + json.dumps(stats))
+        if not (same and finite):
+            failures.append(f"{path}: tokens differ from the solo executor "
+                            f"or outputs not finite")
+        if got != want:
+            failures.append(f"{path}: launches {got}, want {want}")
+        if run["replays"]:
+            failures.append(f"{path}: replays {run['replays']}")
+        if held is not None and not held["ok"]:
+            failures.append(f"{path}: fails the teacher-forced gate")
+
+    def teacher_forced(layers, spec, local, prompts, follows, run, chunk=0,
+                       dense_truth=False):
+        max_len = prompts.shape[1] + n_new + 32
+        ref = served_reference(layers, spec, local, prompts, follows, n_new,
+                               feed=run["tokens"], chunk=chunk,
+                               max_len=max_len)[0]
+        layers32 = [{k: v.float() for k, v in layer.items()}
+                    for layer in layers]
+        truth = served_reference(layers32, spec, local, prompts, follows,
+                                 n_new, feed=run["tokens"], chunk=chunk,
+                                 dtype=torch.float32, max_len=max_len,
+                                 dense=dense_truth)[0]
+        del layers32
+        torch.cuda.empty_cache()
+        return hold_teacher_forced(local, run["lasts"], run["tokens"], ref,
+                                   truth)
+
+    # (a) Qwen3-8B, 36 layers
+    _, spec = family_config("qwen3-8b", 36)
+    layers, client, gen = random_model(spec, torch.bfloat16, seed=31)
+    torch.cuda.synchronize()
+    say(f"[family_qwen3] Qwen3-8B bf16, {spec.num_hidden_layers} layers, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    prompts = torch.randint(0, spec.vocab_size, (sessions, 1000),
+                            generator=gen, device="cuda")
+    follows = torch.randint(0, spec.vocab_size, (sessions, 24),
+                            generator=gen, device="cuda")
+    local = DistributedModelForCausalLM(spec, client, None, device="cuda")
+    run = family_run("qwen3-8b", spec, prompts, follows, n_new, {},
+                     layers=layers, client=client)
+    solo = served_reference(layers, spec, local, prompts, follows, n_new)[0]
+    per = spec.num_hidden_layers * sessions
+    check("family_qwen3", run, spec, [t for _, t in solo],
+          {"flash_attention": 2 * per, "paged_decode_attention": n_new * per,
+           "paged_chunk_attention": per},
+          teacher_forced(layers, spec, local, prompts, follows, run))
+    del layers, client, local, run, solo
+    torch.cuda.empty_cache()
+
+    # (b) Qwen2.5-3B, 4 layers, from a checkpoint
+    config, spec = family_config("qwen2.5-3b", 4)
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="bbtpu-qwen2-"))
+    try:
+        t0 = time.perf_counter()
+        write_checkpoint(tmp, spec, seed=37, config=config)
+        say(f"[family_qwen2] checkpoint written in "
+            f"{time.perf_counter() - t0:.2f} s")
+        gen = torch.Generator(device="cuda").manual_seed(41)
+        prompts = torch.randint(0, spec.vocab_size, (sessions, 1000),
+                                generator=gen, device="cuda")
+        follows = torch.randint(0, spec.vocab_size, (sessions, 24),
+                                generator=gen, device="cuda")
+        run = family_run("qwen2.5-3b", spec, prompts, follows, n_new, {},
+                         model_dir=tmp)
+        layers, _ = load_span_params(str(tmp), 0, spec.num_hidden_layers,
+                                     dtype=torch.bfloat16, device="cuda")
+        if not all({"q_bias", "k_bias", "v_bias"} <= set(p) for p in layers):
+            failures.append("family_qwen2: the loader dropped the biases")
+        local = DistributedModelForCausalLM(
+            spec, load_client_params(str(tmp), device="cuda"), None,
+            device="cuda",
+        )
+        solo = served_reference(layers, spec, local, prompts, follows,
+                                n_new)[0]
+        per = spec.num_hidden_layers * sessions
+        check("family_qwen2", run, spec, [t for _, t in solo],
+              {"flash_attention": 2 * per,
+               "paged_decode_attention": n_new * per,
+               "paged_chunk_attention": per})
+        del layers, local, run, solo
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # (c) Mistral-7B-v0.1, 2 layers, window 4096
+    _, spec = family_config("mistral-7b-v0.1", 2)
+    layers, client, gen = random_model(spec, torch.bfloat16, seed=43)
+    prompt_len, chunk = 4400, 64
+    prompts = torch.randint(0, spec.vocab_size, (sessions, prompt_len),
+                            generator=gen, device="cuda")
+    local = DistributedModelForCausalLM(spec, client, None, device="cuda")
+    run = family_run("mistral-7b", spec, prompts, None, n_new,
+                     {"prefill_chunk": chunk}, layers=layers, client=client)
+    solo = served_reference(layers, spec, local, prompts, None, n_new,
+                            chunk=chunk, max_len=prompt_len + n_new)[0]
+    per = spec.num_hidden_layers * sessions
+    check("family_mistral", run, spec, [t for _, t in solo],
+          {"flash_attention": 0,
+           "paged_decode_attention": (n_new - 1) * per,
+           "paged_chunk_attention":
+               paged_prefill_chunks(prompt_len, chunk) * per},
+          teacher_forced(layers, spec, local, prompts, None, run,
+                         chunk=chunk, dense_truth=True))
+    del layers, client, local, run, solo
+    torch.cuda.empty_cache()
+
+    say(f"[families] phase took {time.perf_counter() - t_phase:.1f} s")
+    say(card_line())
+    if failures:
+        raise AssertionError("family runs failed: " + "; ".join(failures))
+    return by_path
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
@@ -4005,6 +4405,7 @@ def main() -> int:
         phase_f32_path()
         torch.cuda.empty_cache()
         by_path = phase_serving(args.profile)
+        by_path.update(phase_families())
     except Exception:
         traceback.print_exc()
         return 1
