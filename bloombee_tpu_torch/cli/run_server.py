@@ -5,8 +5,8 @@ bloombee_tpu/cli/run_server.py).
         --registry 10.0.0.1:7700 --blocks 0:16 --port 7800
 
 The model is a local HF directory (config.json + safetensors) of a family
-the port serves (Llama, Mistral, Qwen2, Qwen3; any other exits non-zero
-with its ROADMAP item before anything is announced); the span's
+the port serves (Llama, Mistral, Qwen2, Qwen3, Gemma2, Gemma3; any other
+exits non-zero with its ROADMAP item before anything is announced); the span's
 layers load onto `--device` (cuda unless asked for cpu, which raises on a
 machine without a GPU). The command line of a JAX deployment starts a
 port server unchanged as long as it leaves the JAX-only flags at their

@@ -133,17 +133,22 @@ class DistributedModelForCausalLM:
     def embed(self, input_ids) -> torch.Tensor:
         """Token ids [B, T] -> f32 hidden states [B, T, D] on the device."""
         ids = _ids(input_ids).to(self.device)
-        return embed_impl(self.params, ids).float()
+        return embed_impl(
+            self.params, ids, self.spec.embedding_multiplier
+        ).float()
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
-        """Final norm + LM head -> f32 logits, promoted as JAX promotes."""
+        """Final norm + LM head -> f32 logits, promoted as JAX promotes
+        (soft-capped where the spec has a final cap)."""
         hidden = hidden.to(self.device)
+        spec = self.spec
         if self.config.use_chunked_head:
             return norm_head_chunked(
-                self.params, hidden, self.spec.rms_norm_eps,
-                step=self.config.chunked_head_step,
+                self.params, hidden, spec.rms_norm_eps,
+                spec.logits_soft_cap, step=self.config.chunked_head_step,
             )
-        return norm_head_impl(self.params, hidden, self.spec.rms_norm_eps)
+        return norm_head_impl(self.params, hidden, spec.rms_norm_eps,
+                              spec.logits_soft_cap)
 
     def inference_session(
         self, max_length: int, batch_size: int = 1,

@@ -1,11 +1,12 @@
 """Model family registry (port of bloombee_tpu/models/auto.py).
 
 Keyed by the HF `model_type`: each family maps a config to a ModelSpec and
-loads one layer's parameters from a checkpoint. The port serves the
-Llama-structured families (llama, mistral, qwen2, qwen3). Every other
-family the JAX package serves raises NotImplementedError naming what it
-needs (`UNPORTED`, ROADMAP Queue 1 item 15); a model_type neither package
-knows raises KeyError.
+loads one layer's parameters from a checkpoint (and, where its names or
+conventions differ from Llama's, the client's embeddings, final norm and
+head). The port serves llama, mistral, qwen2, qwen3, gemma2, gemma3 and
+gemma3_text. Every other family the JAX package serves raises
+NotImplementedError naming what it needs (`UNPORTED`, ROADMAP Queue 1 item
+15); a model_type neither package knows raises KeyError.
 """
 
 from __future__ import annotations
@@ -19,9 +20,6 @@ _REGISTRY: dict[str, "Family"] = {}
 
 # model_type -> what the port lacks to serve it
 UNPORTED = {
-    "gemma2": "head_dim 256 (outside the CUDA kernels' domain), sandwich "
-              "norms, the tanh-GELU MLP, attention and final logit "
-              "soft-caps and the embedding multiplier",
     "gemma4": "heterogeneous attention layers (runtime/hetero.py)",
     "bloom": "ALiBi (ops/alibi.py), LayerNorm and biased projections",
     "falcon": "LayerNorm, the parallel attention residual and fused QKV",
@@ -31,20 +29,23 @@ UNPORTED = {
 
 
 class Family:
-    """One model family: `spec_fn(config) -> ModelSpec` and a per-layer
-    `loader(reader, layer_idx, dtype=, device=) -> dict`. Every served
-    family keeps its embeddings, final norm and head under the Llama
-    names (`checkpoint.load_client_params`)."""
+    """One model family: `spec_fn(config) -> ModelSpec`, a per-layer
+    `loader(reader, layer_idx, dtype=, device=) -> dict` and, where the
+    client's parameters are not under the Llama names as they are
+    (`checkpoint.load_client_params`), a `client_loader(reader, dtype=,
+    device=) -> {"embed", "norm", "lm_head"}`."""
 
     def __init__(
         self,
         name: str,
         spec_fn: Callable[[Any], ModelSpec],
         loader: Callable,
+        client_loader: Callable | None = None,
     ):
         self.name = name
         self._spec_fn = spec_fn
         self._loader = loader
+        self.client_loader = client_loader
 
     def spec_from_config_dict(self, config: dict) -> ModelSpec:
         return self._spec_fn(SimpleNamespace(**config))
@@ -88,6 +89,7 @@ def _register_builtins() -> None:
 
     register_family(Family("llama", llama_spec_from_hf, load_hf_block))
     # side-effect registrations
+    import bloombee_tpu_torch.models.gemma2  # noqa: F401
     import bloombee_tpu_torch.models.mistral  # noqa: F401
     import bloombee_tpu_torch.models.qwen2  # noqa: F401
     import bloombee_tpu_torch.models.qwen3  # noqa: F401

@@ -1,6 +1,6 @@
 """HF checkpoint reading for the port (port of
 bloombee_tpu/models/checkpoint.py), for every family of the registry
-(`models.auto`: Llama, Mistral, Qwen2, Qwen3).
+(`models.auto`: Llama, Mistral, Qwen2, Qwen3, Gemma2, Gemma3).
 
 A server loads only its span's layers; a client loads only the embeddings,
 the final norm and the LM head. Model directories are local paths
@@ -99,12 +99,15 @@ def load_span_params(
 
 def load_client_params(model_dir: str, dtype=None, device="cuda") -> dict:
     """Embeddings + final norm + LM head ([D, V]; the embedding's transpose
-    when the checkpoint ties them)."""
+    when the checkpoint ties them), through the family's `client_loader`
+    when it has one (Gemma), else under the Llama names."""
     from bloombee_tpu_torch.models.auto import get_family
 
     device = resolve_device(device)
     reader = CheckpointReader(model_dir)
-    get_family(reader.model_type())  # an unported family raises here
+    family = get_family(reader.model_type())  # an unported family raises
+    if family.client_loader is not None:
+        return family.client_loader(reader, dtype=dtype, device=device)
     embed = reader.tensor("model.embed_tokens.weight")
     norm = reader.tensor("model.norm.weight")
     if reader.has("lm_head.weight"):

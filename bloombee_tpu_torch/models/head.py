@@ -1,6 +1,7 @@
 """Embed / final-norm + LM-head math of the client (port of
 bloombee_tpu/models/head.py and client/model.py `_norm_head_chunked`,
-Llama path).
+RMSNorm families, with Gemma's embedding multiplier and final logit
+soft-cap).
 
 The head promotes as the JAX package does: f32 hidden states against bf16
 parameters give an f32 product (`torch.promote_types`), never a bf16 one,
@@ -27,9 +28,17 @@ _NP_NAMES = {
 }
 
 
-def embed_impl(params: dict, input_ids: torch.Tensor) -> torch.Tensor:
-    """Token ids -> hidden states, in the embed table's dtype."""
-    return params["embed"][input_ids]
+def embed_impl(params: dict, input_ids: torch.Tensor,
+               embedding_multiplier: float = 1.0) -> torch.Tensor:
+    """Token ids -> hidden states, in the embed table's dtype (Gemma's
+    multiplier applied in that dtype, as JAX applies a Python float)."""
+    h = params["embed"][input_ids]
+    return h * embedding_multiplier if embedding_multiplier != 1.0 else h
+
+
+def _capped(logits: torch.Tensor, soft_cap: float) -> torch.Tensor:
+    """The final logit soft-cap `tanh(l / c) * c` on the f32 logits."""
+    return torch.tanh(logits / soft_cap) * soft_cap if soft_cap else logits
 
 
 def _normed(params: dict, hidden: torch.Tensor, eps: float):
@@ -40,21 +49,23 @@ def _normed(params: dict, hidden: torch.Tensor, eps: float):
 
 
 def norm_head_impl(
-    params: dict, hidden: torch.Tensor, eps: float
+    params: dict, hidden: torch.Tensor, eps: float, soft_cap: float = 0.0
 ) -> torch.Tensor:
-    """Final RMSNorm + LM head -> fp32 logits."""
+    """Final RMSNorm + LM head -> fp32 logits (optionally soft-capped)."""
     h, w = _normed(params, hidden, eps)
-    return (h @ w.to(h.dtype)).float()
+    return _capped((h @ w.to(h.dtype)).float(), soft_cap)
 
 
 def norm_head_chunked(
-    params: dict, hidden: torch.Tensor, eps: float, step: int = 16384
+    params: dict, hidden: torch.Tensor, eps: float, soft_cap: float = 0.0,
+    step: int = 16384,
 ) -> torch.Tensor:
     """Vocab-chunked head: the product runs `step` vocab columns at a time
     into a preallocated f32 output, bounding transient memory to one
     [D, step] slice and one [..., step] product. The ragged last start is
     clamped to V - step, as JAX's dynamic_slice clamps it: the overlap
-    columns are written twice with equal values."""
+    columns are written twice with equal values. The soft-cap applies per
+    slice (elementwise: the same values as on the whole output)."""
     h, w = _normed(params, hidden, eps)
     v = w.shape[1]
     step = min(step, v)
@@ -62,9 +73,9 @@ def norm_head_chunked(
                       device=h.device)
     for i in range(-(-v // step)):
         start = min(i * step, v - step)
-        out[..., start:start + step] = (
-            h @ w[:, start:start + step].to(h.dtype)
-        ).float()
+        out[..., start:start + step] = _capped(
+            (h @ w[:, start:start + step].to(h.dtype)).float(), soft_cap
+        )
     return out
 
 

@@ -1,9 +1,12 @@
 """The Llama-structured transformer block as a plain function (port of
-bloombee_tpu/models/llama/block.py), shared by the Llama-like families:
-Mistral (the same block), Qwen2 (biased q/k/v projections) and Qwen3
-(per-head q/k RMSNorm before rotary). The family extras are optional
-parameter keys, `{q,k,v}_bias` and `q_norm`/`k_norm`, applied where
-present, as the JAX package's family-generic layer body applies them.
+bloombee_tpu/models/llama/block.py), shared by the families the port
+serves: Mistral (the same block), Qwen2 (biased q/k/v projections), Qwen3
+(per-head q/k RMSNorm before rotary) and Gemma2/Gemma3 (sandwich norms
+around attention and the gated tanh-GELU MLP, q/k norms on Gemma3). The
+family extras are optional parameter keys, `{q,k,v}_bias` and
+`q_norm`/`k_norm`, applied where present, and spec switches
+(`sandwich_norms`, `mlp_type`), as the JAX package's family-generic layer
+body applies them.
 
 Weight convention (kept from the JAX package): projection matrices are
 stored [in_features, out_features] and applied as `x @ w`, the transpose of
@@ -20,7 +23,7 @@ import torch
 
 from bloombee_tpu_torch.models.spec import ModelSpec
 from bloombee_tpu_torch.ops import apply_rotary, masked_attention, rms_norm
-from bloombee_tpu_torch.ops import silu_mlp
+from bloombee_tpu_torch.ops import gelu_tanh_mlp, silu_mlp
 from bloombee_tpu_torch.ops.attention import causal_mask
 from bloombee_tpu_torch.utils.device import resolve_device
 
@@ -39,9 +42,10 @@ def init_block_params(
 ) -> dict:
     """Random block parameters: N(0, 1/D) projections (drawn in f32 on the
     generator's device), unit norms. The generator must live on `device`.
-    A Qwen2 spec also gets N(0, 1) q/k/v biases and a `qk_norm` spec unit
-    q/k norms, drawn after the Llama keys so a Llama spec's draws stay as
-    they were."""
+    A Qwen2 spec also gets N(0, 1) q/k/v biases, a `qk_norm` spec unit
+    q/k norms and a `sandwich_norms` spec unit pre- and post-feedforward
+    norms, made after the Llama keys so a Llama spec's draws stay as they
+    were."""
     device = resolve_device(device)
     d, i = spec.hidden_size, spec.intermediate_size
     h, kv, hd = spec.num_attention_heads, spec.num_key_value_heads, spec.head_dim
@@ -70,6 +74,10 @@ def init_block_params(
     if spec.qk_norm:
         for name in ("q_norm", "k_norm"):
             params[name] = torch.ones((hd,), dtype=dtype, device=device)
+    if spec.sandwich_norms:
+        for name in ("pre_feedforward_layernorm",
+                     "post_feedforward_layernorm"):
+            params[name] = torch.ones((d,), dtype=dtype, device=device)
     return params
 
 
@@ -122,12 +130,38 @@ def block_forward(
 
     attn_out, aux = attend(q, k, v)
 
-    hidden = hidden + proj(attn_out.reshape(b, t, -1), params, "o_proj")
-    x = rms_norm(hidden, params["post_attention_layernorm"], spec.rms_norm_eps)
-    mlp_out = silu_mlp(
-        x, params["gate_proj"], params["up_proj"], params["down_proj"]
-    )
-    return hidden + mlp_out, aux
+    attn_out = proj(attn_out.reshape(b, t, -1), params, "o_proj")
+    return finish_layer(params, spec, hidden, attn_out), aux
+
+
+def mlp(params: dict, spec: ModelSpec, x: torch.Tensor) -> torch.Tensor:
+    """The layer's gated MLP: SiLU, or Gemma's tanh-GELU."""
+    fn = gelu_tanh_mlp if spec.mlp_type == "gelu_tanh_gated" else silu_mlp
+    return fn(x, params["gate_proj"], params["up_proj"], params["down_proj"])
+
+
+def finish_layer(
+    params: dict,
+    spec: ModelSpec,
+    hidden: torch.Tensor,  # [..., D] the layer's input
+    attn_out: torch.Tensor,  # [..., D] after o_proj
+) -> torch.Tensor:
+    """Residual + MLP tail of every attention route (JAX `_finish_layer`).
+    Llama: hidden + attn, then post-attention RMSNorm and the MLP. Gemma's
+    sandwich: the post-attention norm on the attention output before the
+    residual, the pre- and post-feedforward norms around the MLP."""
+    eps = spec.rms_norm_eps
+    if spec.sandwich_norms:
+        hidden = hidden + rms_norm(
+            attn_out, params["post_attention_layernorm"], eps
+        )
+        x = rms_norm(hidden, params["pre_feedforward_layernorm"], eps)
+        return hidden + rms_norm(
+            mlp(params, spec, x), params["post_feedforward_layernorm"], eps
+        )
+    hidden = hidden + attn_out
+    x = rms_norm(hidden, params["post_attention_layernorm"], eps)
+    return hidden + mlp(params, spec, x)
 
 
 def dense_attend(
@@ -192,8 +226,8 @@ def params_from_jax(tree, dtype=None, device="cuda") -> list[dict]:
     """The JAX package's block parameters, given as numpy arrays — a list of
     per-layer dicts, or one dict stacked with a leading L — as the port's
     list of per-layer dicts of tensors. Same [in, out] layout: a copy of
-    every key, the family extras (`{q,k,v}_bias`, `q_norm`/`k_norm`)
-    included."""
+    every key, the family extras (`{q,k,v}_bias`, `q_norm`/`k_norm`, the
+    Gemma norms) included."""
     device = resolve_device(device)
 
     def conv(x):

@@ -83,3 +83,9 @@ class ModelSpec:
                 != self.num_key_value_heads
             )
         )
+
+    def theta_for_layer(self, layer_idx: int) -> float:
+        """Sliding layers may use a local rope base (Gemma3 style)."""
+        if self.layer_type(layer_idx) == "sliding" and self.rope_local_theta:
+            return self.rope_local_theta
+        return self.rope_theta

@@ -2,7 +2,7 @@
 bloombee_tpu/ops). The Pallas kernels' counterparts live in `ops/cuda`."""
 
 from bloombee_tpu_torch.ops.attention import masked_attention, repeat_kv
-from bloombee_tpu_torch.ops.mlp import silu_mlp
+from bloombee_tpu_torch.ops.mlp import gelu_tanh_mlp, silu_mlp
 from bloombee_tpu_torch.ops.norms import rms_norm
 from bloombee_tpu_torch.ops.rotary import apply_rotary, rotary_cos_sin
 
@@ -13,4 +13,5 @@ __all__ = [
     "masked_attention",
     "repeat_kv",
     "silu_mlp",
+    "gelu_tanh_mlp",
 ]

@@ -79,9 +79,9 @@ def decode_loop_impl(
     tokens = []
     for plan in plans:
         h = torch.zeros((b, 1, d), dtype=compute_dtype, device=ids.device)
-        h[:rows] = embed_impl(client_params, ids[:rows, None]).to(
-            compute_dtype
-        )
+        h[:rows] = embed_impl(
+            client_params, ids[:rows, None], spec.embedding_multiplier
+        ).to(compute_dtype)
         h = span_step(
             params, arena_k, arena_v, h, plan.write, plan.page_table,
             plan.positions, plan.lens, layer_active,
@@ -89,7 +89,8 @@ def decode_loop_impl(
             use_paged=use_paged, t_real=1,
         )
         logits = norm_head_impl(
-            client_params, h[:, -1:].float(), spec.rms_norm_eps
+            client_params, h[:, -1:].float(), spec.rms_norm_eps,
+            spec.logits_soft_cap,
         )[:, 0]  # [B, V] f32
         nxt = logits.argmax(dim=-1)
         if eos_id >= 0:

@@ -1,12 +1,16 @@
-"""Transformer layer body of the paged span step for the Llama-structured
-families: Llama, Mistral, Qwen2 and Qwen3 (port of
+"""Transformer layer body of the paged span step for the families the
+port serves: Llama, Mistral, Qwen2, Qwen3, Gemma2 and Gemma3 (port of
 bloombee_tpu/runtime/layer_body.py).
 
 RMSNorm, the projections (with Qwen2's q/k/v biases where the layer has
-them), Qwen3's per-head q/k RMSNorm, rotary, the K/V scatter into the paged
-arena, attention and the SiLU MLP. Sliding windows (Mistral) arrive per
-layer from the executor. Attention routes three ways, as in the JAX
-package, on flags the executor sets per step:
+them), the per-head q/k RMSNorm (Qwen3, Gemma3), rotary, the K/V scatter
+into the paged arena, attention (Gemma2's logit soft-cap on the dense
+routes) and the tail (`models.llama.block.finish_layer`: the Llama
+residual or Gemma's sandwich norms; the SiLU or tanh-GELU MLP). Sliding
+windows (Mistral, Gemma) arrive per layer from the executor, and so do
+the rotary tables (Gemma3's sliding layers use a local base). Attention
+routes three ways, as in the JAX package, on flags the executor sets per
+step:
 
 - `use_paged`: the paged kernels read K/V straight off the arena (decode for
   T=1, the int4 decode kernel over a quantized arena, chunk for T>1
@@ -23,10 +27,13 @@ else the dense `attend_ragged` over every member's gathered pages.
 no arena (`models.llama.block.block_forward`; the speculative drafter's
 path).
 
-The other families' structure (MoE, LayerNorm, ALiBi, parallel or sandwich
-residuals, soft-caps, heterogeneous layers), LoRA and top-k sparse
-attention are left out; the executor and the drafter refuse specs that
-need them (`unsupported`, `dense_unsupported`), naming ROADMAP Queue 1.
+The kernels have no soft-cap: a soft-capped spec stays on the dense
+routes (the executor's gates, as in the JAX package), and a kernel route
+asked for one raises. The other families' structure (MoE, LayerNorm,
+ALiBi, the parallel residual, heterogeneous layers), LoRA and top-k
+sparse attention are left out; the executor and the drafter refuse specs
+that need them (`unsupported`, `dense_unsupported`), naming ROADMAP
+Queue 1.
 """
 
 from __future__ import annotations
@@ -38,10 +45,11 @@ from bloombee_tpu_torch.kv.quant import QuantSlab
 from bloombee_tpu_torch.models.llama.block import (
     attention_inputs,
     block_forward,
+    finish_layer,
     proj,
 )
 from bloombee_tpu_torch.models.spec import ModelSpec
-from bloombee_tpu_torch.ops import rms_norm, silu_mlp
+from bloombee_tpu_torch.ops import rms_norm
 from bloombee_tpu_torch.ops.attention import NEG_INF, repeat_kv
 from bloombee_tpu_torch.ops.cuda.flash_attention import flash_attention
 from bloombee_tpu_torch.ops.cuda.paged_attention import (
@@ -58,6 +66,21 @@ def attn_scale(spec: ModelSpec) -> float:
         if spec.attention_multiplier is not None
         else spec.head_dim**-0.5
     )
+
+
+def soft_cap(spec: ModelSpec, logits: torch.Tensor) -> torch.Tensor:
+    """Gemma2's attention logit soft-cap `tanh(s / c) * c`, on the scaled
+    f32 logits before the mask (the JAX order); identity without one."""
+    c = spec.attn_logit_softcap
+    return torch.tanh(logits / c) * c if c else logits
+
+
+def _kernel_route_check(spec: ModelSpec) -> None:
+    if spec.attn_logit_softcap:
+        raise ValueError(
+            "the attention kernels have no logit soft-cap: a soft-capped "
+            "spec takes the dense routes"
+        )
 
 
 def attend_paged(
@@ -94,7 +117,7 @@ def attend_paged(
     k_r = repeat_kv(k_ctx, n_rep)
     v_r = repeat_kv(v_ctx, n_rep)
     logits = torch.einsum("bthd,bshd->bhts", q, k_r).float() * attn_scale(spec)
-    logits = logits.masked_fill(~mask[:, None], NEG_INF)
+    logits = soft_cap(spec, logits).masked_fill(~mask[:, None], NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bhts,bshd->bthd", probs, v_r)
 
@@ -102,7 +125,8 @@ def attend_paged(
 def unsupported(spec: ModelSpec) -> str | None:
     """Why this layer body cannot serve `spec`, naming the ROADMAP item
     that ports it; None when it can (Llama-structured blocks, with or
-    without q/k/v biases, q/k norms and sliding windows)."""
+    without q/k/v biases, q/k norms and sliding windows; Gemma's sandwich
+    norms, tanh-GELU MLP, attention soft-cap and per-layer rope theta)."""
     reason = _unported_structure(spec)
     return None if reason is None else (
         f"{reason} (ROADMAP Queue 1 item 15)"
@@ -112,16 +136,16 @@ def unsupported(spec: ModelSpec) -> str | None:
 def _unported_structure(spec: ModelSpec) -> str | None:
     if spec.heterogeneous:
         return "heterogeneous head_dim layers"
-    if spec.norm_type != "rms" or spec.mlp_type != "silu":
+    if spec.norm_type != "rms" or spec.mlp_type not in (
+        "silu", "gelu_tanh_gated"
+    ):
         return f"{spec.norm_type} norm / {spec.mlp_type} MLP"
     if spec.num_experts or spec.k_eq_v_full:
         return "MoE / shared K=V projections"
-    if spec.alibi or spec.attn_logit_softcap:
-        return "ALiBi / attention logit soft-cap"
-    if spec.parallel_attn or spec.sandwich_norms:
-        return "parallel or sandwich residual"
-    if spec.rope_local_theta and spec.rope_local_theta != spec.rope_theta:
-        return "per-layer rope theta"
+    if spec.alibi:
+        return "ALiBi"
+    if spec.parallel_attn:
+        return "parallel residual"
     return None
 
 
@@ -192,6 +216,8 @@ def layer_body(
         spec.num_key_value_heads,
         spec.head_dim,
     )
+    if use_paged or use_flash:
+        _kernel_route_check(spec)
     x = rms_norm(hidden, params["input_layernorm"], spec.rms_norm_eps)
     q, k, v = attention_inputs(params, spec, x, cos, sin)
 
@@ -231,7 +257,7 @@ def layer_body(
                 window,
             )
     attn_out = proj(attn.reshape(b, t, h_heads * hd), params, "o_proj")
-    return _finish_layer(spec, params, hidden, attn_out)
+    return finish_layer(params, spec, hidden, attn_out)
 
 
 def attend_ragged(
@@ -275,7 +301,7 @@ def attend_ragged(
     k_r = repeat_kv(k_ctx, n_rep)  # [B, S, H, hd]
     v_r = repeat_kv(v_ctx, n_rep)
     logits = torch.einsum("rhd,bshd->rhbs", q, k_r).float() * attn_scale(spec)
-    logits = logits.masked_fill(~mask[:, None], NEG_INF)
+    logits = soft_cap(spec, logits).masked_fill(~mask[:, None], NEG_INF)
     probs = torch.softmax(logits.reshape(r, h, b * s), dim=-1).to(q.dtype)
     return torch.einsum("rhs,shd->rhd", probs, v_r.reshape(b * s, h, hd))
 
@@ -308,6 +334,8 @@ def layer_body_ragged(
         spec.num_key_value_heads,
         spec.head_dim,
     )
+    if use_kernel:
+        _kernel_route_check(spec)
     x = rms_norm(hidden, params["input_layernorm"], spec.rms_norm_eps)
     q, k, v = attention_inputs(params, spec, x, cos, sin)
 
@@ -329,14 +357,4 @@ def layer_body_ragged(
             window, nt=nt, tree_rows=tree_rows,
         )
     attn_out = proj(attn.reshape(1, r, h_heads * hd), params, "o_proj")
-    return _finish_layer(spec, params, hidden, attn_out)
-
-
-def _finish_layer(spec, params, hidden, attn_out):
-    """Residual + MLP tail shared by the dense/flash/paged attention paths
-    (Llama: sequential residual, post-attention RMSNorm, SiLU MLP)."""
-    hidden = hidden + attn_out
-    x2 = rms_norm(hidden, params["post_attention_layernorm"], spec.rms_norm_eps)
-    return hidden + silu_mlp(
-        x2, params["gate_proj"], params["up_proj"], params["down_proj"]
-    )
+    return finish_layer(params, spec, hidden, attn_out)

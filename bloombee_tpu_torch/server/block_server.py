@@ -2286,7 +2286,8 @@ class BlockServer:
         client's embed (the table's dtype, then f32) and its wire cast, so
         the stepped loop feeds the span what the per-step path feeds it."""
         ids_t = torch.as_tensor(np.asarray(ids, dtype=np.int64))[:, None]
-        h = embed_impl(self._client_params, ids_t.to(self.device)).float()
+        h = embed_impl(self._client_params, ids_t.to(self.device),
+                       self.spec.embedding_multiplier).float()
         return h.to(self._wire_torch_dtype)
 
     def _select_head(self, out_dev) -> np.ndarray:
@@ -2295,7 +2296,8 @@ class BlockServer:
         f32, norm + head, first-index argmax."""
         out = out_dev.to(self._wire_torch_dtype).float()
         logits = norm_head_impl(
-            self._client_params, out[:, -1:], self.spec.rms_norm_eps
+            self._client_params, out[:, -1:], self.spec.rms_norm_eps,
+            self.spec.logits_soft_cap,
         )[:, 0]
         return logits.argmax(dim=-1).cpu().numpy().astype(np.int64)
 

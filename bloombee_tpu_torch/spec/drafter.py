@@ -77,11 +77,14 @@ class LocalDraftModel:
 
     def _embed(self, ids: np.ndarray) -> torch.Tensor:
         return embed_impl(
-            self.client, torch.as_tensor(ids, dtype=torch.int64).to(self.device)
+            self.client,
+            torch.as_tensor(ids, dtype=torch.int64).to(self.device),
+            self.spec.embedding_multiplier,
         )
 
     def _head(self, h_last: torch.Tensor) -> torch.Tensor:
-        return norm_head_impl(self.client, h_last, self.spec.rms_norm_eps)
+        return norm_head_impl(self.client, h_last, self.spec.rms_norm_eps,
+                              self.spec.logits_soft_cap)
 
     def _rotary(self, positions: torch.Tensor):
         return rotary_cos_sin(positions, self.spec.head_dim,

@@ -206,6 +206,28 @@ Phases:
        flash launch.
    Prints each run's time to first token and per-token medians and the
    card's name and power limit.
+11. The Gemma families through the port's registry (published configs,
+   random bf16 weights, tied heads), two port BlockServers over the
+   halves and the port client; launch counts reset and read around each
+   run's sessions (paths "gemma2", "gemma3", "gemma3_mixed"):
+   (a) Gemma-2-27B at published width (attention and final logit
+       soft-caps), 8 layers, `max_batch=1`: 2 sessions of 32 tokens from
+       1000-token prompts and a 24-token follow-up with 2 more; tokens
+       identical to the solo executor, held teacher-forced against an f32
+       truth; no kernel launched (soft-capped attention stays dense);
+   (b) Gemma-3-27B at published width (q/k norms, window 1024 on five
+       layers of six, local and global rope bases), 12 layers: run 1 as
+       (a) from 1500-token prompts, the sliding layers' window on the
+       paged decode and chunk kernels (launches exactly 32 and 1 a layer
+       a session), tokens identical, held against an f32 truth on the
+       dense route; run 2 with `mixed_batch=True`, `prefill_chunk=32`,
+       `max_batch=8`, BBTPU_PAGED_MIN_CONTEXT=0, a 20 ms gather window
+       and a third, late session: ragged, decode and chunk launches
+       equal to the servers' layers x their ragged dispatches, decode
+       dispatches, and unfused chunks plus follow-ups; held
+       teacher-forced; no flash.
+   Prints each run's time to first token and per-token medians and the
+   card's name and power limit.
 
 Prints the card's name and power limit, per-phase results, a
 `{"kernels": [...]}` line, and as its last line
@@ -2215,6 +2237,22 @@ class ReplayWatch:
         self.logger.removeHandler(self.handler)
 
 
+@contextlib.contextmanager
+def env_set(name: str, value: str):
+    """Set an environment variable for the block, restoring it after."""
+    import os
+
+    saved = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = saved
+
+
 def served_reference(layers, spec, local, prompts, follows, n_new,
                      feed=None, chunk=0, dtype=None, max_len=1100,
                      dense=False):
@@ -2232,8 +2270,6 @@ def served_reference(layers, spec, local, prompts, follows, n_new,
     step takes the dense attention route. Returns per session
     (last-position hidden states [n_new (+ 2), D] f32, the reference's
     greedy tokens) and the decode steps' wall times."""
-    import os
-
     import torch
 
     from bloombee_tpu_torch.kv.cache_manager import CacheManager
@@ -2243,17 +2279,10 @@ def served_reference(layers, spec, local, prompts, follows, n_new,
     dtype = dtype or bf16
     manager = CacheManager(n_layers, 1024, PS, spec.num_key_value_heads,
                            spec.head_dim, dtype=dtype, device="cuda")
-    saved = os.environ.get("BBTPU_PAGED_MIN_CONTEXT")
-    if dense:
-        os.environ["BBTPU_PAGED_MIN_CONTEXT"] = str(1 << 30)
-    try:
+    with (env_set("BBTPU_PAGED_MIN_CONTEXT", str(1 << 30)) if dense
+          else contextlib.nullcontext()):
         ex = SpanExecutor(layers, spec, manager, max_chunk_tokens=512,
                           compute_dtype=dtype, device="cuda")
-    finally:
-        if saved is None:
-            os.environ.pop("BBTPU_PAGED_MIN_CONTEXT", None)
-        else:
-            os.environ["BBTPU_PAGED_MIN_CONTEXT"] = saved
     sessions, step_s = [], []
 
     def embed(ids):
@@ -4059,29 +4088,74 @@ FAMILY_CONFIGS = {
         "sliding_window": 4096, "tie_word_embeddings": False,
         "torch_dtype": "bfloat16",
     },
+    "gemma-2-27b": {  # google/gemma-2-27b
+        "model_type": "gemma2", "architectures": ["Gemma2ForCausalLM"],
+        "hidden_size": 4608, "intermediate_size": 36864,
+        "num_attention_heads": 32, "num_key_value_heads": 16,
+        "head_dim": 128, "num_hidden_layers": 46, "vocab_size": 256000,
+        "rms_norm_eps": 1e-6, "rope_theta": 10000.0,
+        "query_pre_attn_scalar": 144, "sliding_window": 4096,
+        "attn_logit_softcapping": 50.0, "final_logit_softcapping": 30.0,
+        "hidden_activation": "gelu_pytorch_tanh",
+        "max_position_embeddings": 8192,
+        # HF's Gemma2 pattern written out: even layers sliding
+        "layer_types": ["sliding_attention", "full_attention"] * 23,
+    },
+    "gemma-3-27b": {  # google/gemma-3-27b-it, the text tower
+        "model_type": "gemma3",
+        "architectures": ["Gemma3ForConditionalGeneration"],
+        # the hub's text_config, with the fields HF's Gemma3TextConfig
+        # fills in by default (vocab, eps, the two rope bases) and its
+        # layer_types (five sliding layers to one full) written out; the
+        # global layers' rope_scaling (linear, factor 8) is read by
+        # neither package (ROADMAP Queue 1 item 15)
+        "text_config": {
+            "model_type": "gemma3_text", "hidden_size": 5376,
+            "intermediate_size": 21504, "num_attention_heads": 32,
+            "num_key_value_heads": 16, "head_dim": 128,
+            "num_hidden_layers": 62, "vocab_size": 262208,
+            "rms_norm_eps": 1e-6, "rope_theta": 1000000.0,
+            "rope_local_base_freq": 10000.0, "query_pre_attn_scalar": 168,
+            "sliding_window": 1024, "max_position_embeddings": 131072,
+            "rope_scaling": {"factor": 8.0, "rope_type": "linear"},
+            "layer_types": [
+                "full_attention" if (i + 1) % 6 == 0
+                else "sliding_attention"
+                for i in range(62)
+            ],
+        },
+        "torch_dtype": "bfloat16",
+    },
 }
 
 
 def family_config(name: str, layers: int) -> tuple[dict, object]:
-    """A published config cut to `layers` and the port registry's spec of
-    it."""
+    """A published config cut to `layers` (a nested `text_config` too, and
+    its `layer_types`) and the port registry's spec of it."""
     from bloombee_tpu_torch.models.auto import spec_from_config_dict
 
-    config = {**FAMILY_CONFIGS[name], "num_hidden_layers": layers}
+    config = json.loads(json.dumps(FAMILY_CONFIGS[name]))
+    text = config.get("text_config", config)
+    text["num_hidden_layers"] = layers
+    if "layer_types" in text:
+        text["layer_types"] = text["layer_types"][:layers]
     return config, spec_from_config_dict(config)
 
 
 def family_run(uid, spec, prompts, follows, n_new, server_kw, layers=None,
-               client=None, model_dir=None) -> dict:
-    """A port registry and two port BlockServers (`max_batch=1` plus
-    `server_kw`) over the halves of the model, on a ServerLoop: over
-    in-memory `layers`, or each built from `model_dir`. The port client
-    (over `client` or, given `model_dir`, `from_pretrained`) opens one
-    session per prompt; the sessions concurrently `generate` n_new tokens,
-    then (unless `follows` is None) a follow-up turn with 2 more. Launch
-    counts are reset just before the sessions step and read just after.
-    Returns the tokens, each session's last-position outputs, time to
-    first token, per-token median and the launches."""
+               client=None, model_dir=None, late=False) -> dict:
+    """A port registry and two port BlockServers (`max_batch=1` unless
+    `server_kw` says otherwise, plus `server_kw`) over the halves of the
+    model, on a ServerLoop: over in-memory `layers`, or each built from
+    `model_dir`. The port client (over `client` or, given `model_dir`,
+    `from_pretrained`) opens one session per prompt; the sessions
+    concurrently `generate` n_new tokens, then (unless `follows` is None) a
+    follow-up turn with 2 more; with `late`, the last session sends its
+    prompt once each of the others has decoded 8 tokens. Launch counts are
+    reset just before the sessions step and read just after. Returns the
+    tokens, each session's last-position outputs, time to first token,
+    per-token median, the launches and both servers' rpc_info and
+    layers."""
     import torch
 
     from bloombee_tpu_torch.client import (
@@ -4104,7 +4178,9 @@ def family_run(uid, spec, prompts, follows, n_new, server_kw, layers=None,
             config=ClientConfig(use_push=True),
         )
 
-    async def one(model, session, i):
+    async def one(model, session, i, start=None):
+        if start is not None:
+            await start
         ids = await model.generate(prompts[i : i + 1], max_new_tokens=n_new,
                                    session=session)
         toks = [ids[0, -n_new:]]
@@ -4116,6 +4192,13 @@ def family_run(uid, spec, prompts, follows, n_new, server_kw, layers=None,
 
     async def sessions(reg_port):
         models = [model_for(reg_port) for _ in prompts]
+        last = len(models) - 1
+        decoded_8 = [asyncio.Event() for _ in range(last if late else 0)]
+
+        def on_embed(i):
+            # the prompt's embed, then one per selected token
+            return lambda n: n == 9 and decoded_8[i].set()
+
         try:
             async with contextlib.AsyncExitStack() as stack:
                 opened = [
@@ -4124,12 +4207,15 @@ def family_run(uid, spec, prompts, follows, n_new, server_kw, layers=None,
                     )
                     for m in models
                 ]
-                recs = [tap(s, m) for s, m in zip(opened, models)]
+                recs = [tap(s, m, on_embed(i) if i < len(decoded_8) else None)
+                        for i, (s, m) in enumerate(zip(opened, models))]
+                start_last = (asyncio.gather(*(e.wait() for e in decoded_8))
+                              if late else None)
                 torch.cuda.synchronize()
                 build.reset_launch_counts()
                 t0 = time.perf_counter()
                 tokens = await asyncio.gather(*(
-                    one(m, s, i)
+                    one(m, s, i, start_last if i == last else None)
                     for i, (m, s) in enumerate(zip(models, opened))
                 ))
                 torch.cuda.synchronize()
@@ -4157,16 +4243,85 @@ def family_run(uid, spec, prompts, follows, n_new, server_kw, layers=None,
         reg, servers = servers_loop.run(start_span_servers(
             layers, spec, uid, spans, torch.bfloat16, 1024,
             model_dir=None if model_dir is None else str(model_dir),
-            max_batch=1, **server_kw,
+            **{"max_batch": 1, **server_kw},
         ))
         try:
             out = asyncio.run(sessions(reg.port))
+            out["infos"] = [servers_loop.run(s._rpc_info({}, []))[0]
+                            for s in servers]
+            out["server_layers"] = [s.end_block - s.start_block
+                                    for s in servers]
         finally:
             servers_loop.run(stop_span_servers(reg, servers))
             del servers
     out["replays"] = list(watch.seen)
     torch.cuda.empty_cache()
     return out
+
+
+def family_check(by_path, failures, path, run, spec, ref_tokens, want,
+                 held=None, identical=True) -> None:
+    """Record a family run's launches under `path` in `by_path` (the
+    wanted kernels' zeros included) and print its numbers; append to
+    `failures` what misses: tokens other than the solo executor's
+    `ref_tokens` (only gated when `identical`: merged and ragged
+    dispatches round differently from the solo path, and `held` gates
+    such a run), outputs that are not finite, launches other than `want`,
+    a replayed group, a failed teacher-forced gate."""
+    import torch
+
+    launches = by_path[path] = {**dict.fromkeys(want, 0), **run["launches"]}
+    if ref_tokens is None:
+        # no solo run: the teacher-forced reference's own greedy picks
+        # stand in (equal everywhere iff it flipped none)
+        same = held["ok"] and held["tolerated_flips"] == 0
+    else:
+        same = all(torch.equal(t, r)
+                   for t, r in zip(run["tokens"], ref_tokens))
+    finite = all(torch.isfinite(x).all().item() for x in run["lasts"])
+    got = {k: launches.get(k, 0) for k in want}
+    stats = {
+        "layers": spec.num_hidden_layers, "window": spec.sliding_window,
+        "tokens_identical_to_solo_executor": same, "finite": finite,
+        "ttft_ms": [round(x, 2) for x in run["ttft_ms"]],
+        "per_token_ms_median": [round(x, 3)
+                                for x in run["per_token_ms_median"]],
+        "run_s": round(run["wall_s"], 3), "launches": launches,
+        "launches_want": want, "replays": len(run["replays"]),
+    }
+    if held is not None:
+        stats["held"] = held
+    say(f"[{path}] " + json.dumps(stats))
+    if not finite or (identical and not same):
+        failures.append(f"{path}: tokens differ from the solo executor "
+                        f"or outputs not finite")
+    if got != want:
+        failures.append(f"{path}: launches {got}, want {want}")
+    if run["replays"]:
+        failures.append(f"{path}: replays {run['replays']}")
+    if held is not None and not held["ok"]:
+        failures.append(f"{path}: fails the teacher-forced gate")
+
+
+def family_teacher_forced(layers, spec, local, prompts, follows, run, n_new,
+                          chunk=0, dense_truth=False) -> dict:
+    """`hold_teacher_forced` of a family run: the solo executor fed the
+    run's tokens in bf16 (the run's routes) and, as the truth, over f32
+    copies of the layers (`dense_truth`: on the dense route)."""
+    import torch
+
+    max_len = prompts.shape[1] + n_new + 32
+    ref = served_reference(layers, spec, local, prompts, follows, n_new,
+                           feed=run["tokens"], chunk=chunk,
+                           max_len=max_len)[0]
+    layers32 = [{k: v.float() for k, v in layer.items()} for layer in layers]
+    truth = served_reference(layers32, spec, local, prompts, follows, n_new,
+                             feed=run["tokens"], chunk=chunk,
+                             dtype=torch.float32, max_len=max_len,
+                             dense=dense_truth)[0]
+    del layers32
+    torch.cuda.empty_cache()
+    return hold_teacher_forced(local, run["lasts"], run["tokens"], ref, truth)
 
 
 def paged_prefill_chunks(prompt_len: int, chunk: int) -> int:
@@ -4236,51 +4391,6 @@ def phase_families() -> dict:
     by_path, failures = {}, []
     n_new, sessions = 32, 2
 
-    def check(path, run, spec, ref_tokens, want, held=None):
-        launches = by_path[path] = run["launches"]
-        same = all(torch.equal(t, r) for t, r in zip(run["tokens"],
-                                                      ref_tokens))
-        finite = all(torch.isfinite(x).all().item() for x in run["lasts"])
-        got = {k: launches.get(k, 0) for k in want}
-        stats = {
-            "layers": spec.num_hidden_layers, "window": spec.sliding_window,
-            "tokens_identical_to_solo_executor": same, "finite": finite,
-            "ttft_ms": [round(x, 2) for x in run["ttft_ms"]],
-            "per_token_ms_median": [round(x, 3)
-                                    for x in run["per_token_ms_median"]],
-            "run_s": round(run["wall_s"], 3), "launches": launches,
-            "launches_want": want, "replays": len(run["replays"]),
-        }
-        if held is not None:
-            stats["held"] = held
-        say(f"[{path}] " + json.dumps(stats))
-        if not (same and finite):
-            failures.append(f"{path}: tokens differ from the solo executor "
-                            f"or outputs not finite")
-        if got != want:
-            failures.append(f"{path}: launches {got}, want {want}")
-        if run["replays"]:
-            failures.append(f"{path}: replays {run['replays']}")
-        if held is not None and not held["ok"]:
-            failures.append(f"{path}: fails the teacher-forced gate")
-
-    def teacher_forced(layers, spec, local, prompts, follows, run, chunk=0,
-                       dense_truth=False):
-        max_len = prompts.shape[1] + n_new + 32
-        ref = served_reference(layers, spec, local, prompts, follows, n_new,
-                               feed=run["tokens"], chunk=chunk,
-                               max_len=max_len)[0]
-        layers32 = [{k: v.float() for k, v in layer.items()}
-                    for layer in layers]
-        truth = served_reference(layers32, spec, local, prompts, follows,
-                                 n_new, feed=run["tokens"], chunk=chunk,
-                                 dtype=torch.float32, max_len=max_len,
-                                 dense=dense_truth)[0]
-        del layers32
-        torch.cuda.empty_cache()
-        return hold_teacher_forced(local, run["lasts"], run["tokens"], ref,
-                                   truth)
-
     # (a) Qwen3-8B, 36 layers
     _, spec = family_config("qwen3-8b", 36)
     layers, client, gen = random_model(spec, torch.bfloat16, seed=31)
@@ -4296,10 +4406,14 @@ def phase_families() -> dict:
                      layers=layers, client=client)
     solo = served_reference(layers, spec, local, prompts, follows, n_new)[0]
     per = spec.num_hidden_layers * sessions
-    check("family_qwen3", run, spec, [t for _, t in solo],
-          {"flash_attention": 2 * per, "paged_decode_attention": n_new * per,
-           "paged_chunk_attention": per},
-          teacher_forced(layers, spec, local, prompts, follows, run))
+    family_check(
+        by_path, failures, "family_qwen3", run, spec,
+        [t for _, t in solo],
+        {"flash_attention": 2 * per, "paged_decode_attention": n_new * per,
+         "paged_chunk_attention": per},
+        family_teacher_forced(layers, spec, local, prompts, follows, run,
+                              n_new),
+    )
     del layers, client, local, run, solo
     torch.cuda.empty_cache()
 
@@ -4329,10 +4443,11 @@ def phase_families() -> dict:
         solo = served_reference(layers, spec, local, prompts, follows,
                                 n_new)[0]
         per = spec.num_hidden_layers * sessions
-        check("family_qwen2", run, spec, [t for _, t in solo],
-              {"flash_attention": 2 * per,
-               "paged_decode_attention": n_new * per,
-               "paged_chunk_attention": per})
+        family_check(by_path, failures, "family_qwen2", run, spec,
+                     [t for _, t in solo],
+                     {"flash_attention": 2 * per,
+                      "paged_decode_attention": n_new * per,
+                      "paged_chunk_attention": per})
         del layers, local, run, solo
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -4350,13 +4465,16 @@ def phase_families() -> dict:
     solo = served_reference(layers, spec, local, prompts, None, n_new,
                             chunk=chunk, max_len=prompt_len + n_new)[0]
     per = spec.num_hidden_layers * sessions
-    check("family_mistral", run, spec, [t for _, t in solo],
-          {"flash_attention": 0,
-           "paged_decode_attention": (n_new - 1) * per,
-           "paged_chunk_attention":
-               paged_prefill_chunks(prompt_len, chunk) * per},
-          teacher_forced(layers, spec, local, prompts, None, run,
-                         chunk=chunk, dense_truth=True))
+    family_check(
+        by_path, failures, "family_mistral", run, spec,
+        [t for _, t in solo],
+        {"flash_attention": 0,
+         "paged_decode_attention": (n_new - 1) * per,
+         "paged_chunk_attention":
+             paged_prefill_chunks(prompt_len, chunk) * per},
+        family_teacher_forced(layers, spec, local, prompts, None, run, n_new,
+                              chunk=chunk, dense_truth=True),
+    )
     del layers, client, local, run, solo
     torch.cuda.empty_cache()
 
@@ -4364,6 +4482,186 @@ def phase_families() -> dict:
     say(card_line())
     if failures:
         raise AssertionError("family runs failed: " + "; ".join(failures))
+    return by_path
+
+
+# ------------------------------------------------------------- phase 11
+KERNELS = tuple(REPLACES)
+
+
+def tied_model(spec, seed: int):
+    """Random bf16 layers (`init_block_params`: unit norms, Gemma's
+    sandwich and q/k norms among them) and client parameters with a tied
+    head: `lm_head` is the N(0, 1/D) embedding's transpose (a view, no
+    second copy), so the sqrt(D) embedding multiplier gives unit-scale
+    hidden states and unit-scale logits."""
+    import torch
+
+    from bloombee_tpu_torch.models.llama.block import init_block_params
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    layers = [init_block_params(gen, spec, dtype=bf16, device="cuda")
+              for _ in range(spec.num_hidden_layers)]
+    d = spec.hidden_size
+    embed = (torch.randn((spec.vocab_size, d), generator=gen, device="cuda")
+             * d**-0.5).to(bf16)
+    client = {"embed": embed,
+              "norm": torch.ones((d,), device="cuda", dtype=bf16),
+              "lm_head": embed.t()}
+    return layers, client, gen
+
+
+def phase_gemma() -> dict:
+    """Phase 11: the Gemma families through the port's registry (published
+    configs, random bf16 weights with tied heads), each run served by two
+    port BlockServers over the halves of the model and the port client,
+    launch counts reset and read around each run's sessions (paths
+    "gemma2", "gemma3", "gemma3_mixed"):
+
+    (a) Gemma-2-27B at published width (32/16 heads of 128, window 4096
+        on even layers, query scale 144^-0.5, attention and final logit
+        soft-caps 50 and 30), 8 layers, [0, 4) + [4, 8), `max_batch=1`: 2
+        sessions of 32 tokens from 1000-token prompts and a 24-token
+        follow-up with 2 more. Tokens identical to the solo executor, held
+        teacher-forced against an f32 truth; no kernel launched at all:
+        soft-capped attention stays dense inside the kernels' domain, as
+        the JAX gates keep it.
+    (b) Gemma-3-27B at published width (32/16 heads of 128, q/k norms,
+        window 1024 on five layers of six, rope bases 1e4 sliding and 1e6
+        full, query scale 168^-0.5), 12 layers (full layers 5 and 11),
+        [0, 6) + [6, 12):
+        run 1, `max_batch=1`: 2 sessions of 32 tokens from 1500-token
+        prompts (past the window) and a 24-token follow-up with 2 more;
+        tokens identical to the solo executor, held teacher-forced
+        against an f32 truth on the dense route; paged decode = 32 a layer
+        a session (31 + the follow-up's), chunk = 1 a layer a session
+        (the follow-up), no flash (a window keeps it off), no ragged;
+        run 2, `mixed_batch=True`, `prefill_chunk=32`, `max_batch=8`,
+        BBTPU_PAGED_MIN_CONTEXT=0 (every attention step on a kernel), a
+        20 ms gather window (BBTPU_BATCH_WINDOW_MS): the two sessions and
+        a third sent once they have decoded 8 tokens;
+        ragged = each server's layers x its ragged dispatches, decode =
+        its layers x its decode dispatches, chunk = its layers x its
+        prefill chunks run alone plus the 3 follow-ups, flash 0; held
+        teacher-forced against the solo executor cutting the prompts into
+        the same chunks and an f32 truth on the dense route.
+
+    Prints each run's time to first token and per-token medians and the
+    card's name and power limit; returns the launches by path."""
+    import gc
+
+    import torch
+
+    from bloombee_tpu_torch.client import DistributedModelForCausalLM
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"[gemma] {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"allocated before the phase")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    by_path, failures = {}, []
+    n_new, sessions = 32, 2
+
+    def inputs(gen, vocab, n, prompt_len):
+        return (torch.randint(0, vocab, (n, prompt_len), generator=gen,
+                              device="cuda"),
+                torch.randint(0, vocab, (n, 24), generator=gen,
+                              device="cuda"))
+
+    # (a) Gemma-2-27B, 8 layers: every route dense
+    _, spec = family_config("gemma-2-27b", 8)
+    layers, client, gen = tied_model(spec, seed=47)
+    torch.cuda.synchronize()
+    say(f"[gemma2] Gemma-2-27B bf16, {spec.num_hidden_layers} layers, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    prompts, follows = inputs(gen, spec.vocab_size, sessions, 1000)
+    local = DistributedModelForCausalLM(spec, client, None, device="cuda")
+    run = family_run("gemma-2-27b", spec, prompts, follows, n_new, {},
+                     layers=layers, client=client)
+    solo = served_reference(layers, spec, local, prompts, follows, n_new)[0]
+    family_check(by_path, failures, "gemma2", run, spec,
+                 [t for _, t in solo], dict.fromkeys(KERNELS, 0),
+                 family_teacher_forced(layers, spec, local, prompts,
+                                       follows, run, n_new))
+    del layers, client, local, run, solo
+    torch.cuda.empty_cache()
+
+    # (b) Gemma-3-27B, 12 layers: sliding layers on the paged kernels
+    _, spec = family_config("gemma-3-27b", 12)
+    layers, client, gen = tied_model(spec, seed=53)
+    torch.cuda.synchronize()
+    say(f"[gemma3] Gemma-3-27B bf16, {spec.num_hidden_layers} layers, "
+        f"windows {[spec.window_for_layer(i) for i in range(12)]}, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    prompts, follows = inputs(gen, spec.vocab_size, 3, 1500)
+    local = DistributedModelForCausalLM(spec, client, None, device="cuda")
+    run = family_run("gemma-3-27b", spec, prompts[:sessions],
+                     follows[:sessions], n_new, {}, layers=layers,
+                     client=client)
+    solo = served_reference(layers, spec, local, prompts[:sessions],
+                            follows[:sessions], n_new,
+                            max_len=prompts.shape[1] + n_new + 32)[0]
+    per = spec.num_hidden_layers * sessions
+    family_check(
+        by_path, failures, "gemma3", run, spec, [t for _, t in solo],
+        {**dict.fromkeys(KERNELS, 0), "paged_decode_attention": n_new * per,
+         "paged_chunk_attention": per},
+        family_teacher_forced(layers, spec, local, prompts[:sessions],
+                              follows[:sessions], run, n_new,
+                              dense_truth=True),
+    )
+    del run, solo
+
+    # a 20 ms gather window: with 6-layer dispatches of a few ms the queue
+    # is mostly empty, and without one a chunk and a decode step rarely
+    # meet in it (on an H100, a run without one fused no chunk at all)
+    chunk = 32
+    with env_set("BBTPU_PAGED_MIN_CONTEXT", "0"), \
+            env_set("BBTPU_BATCH_WINDOW_MS", "20"):
+        run = family_run(
+            "gemma-3-27b-mixed", spec, prompts, follows, n_new,
+            {"max_batch": 8, "mixed_batch": True, "prefill_chunk": chunk},
+            layers=layers, client=client, late=True,
+        )
+        held = family_teacher_forced(layers, spec, local, prompts, follows,
+                                     run, n_new, chunk=chunk,
+                                     dense_truth=True)
+
+    infos = run["infos"]
+
+    def per_server(**signs):
+        # each server's layers x its counters, summed over the servers
+        return sum(n * sum(sg * info[k] for k, sg in signs.items())
+                   for n, info in zip(run["server_layers"], infos))
+
+    say("[gemma3_mixed] batching "
+        + json.dumps([{k: i[k] for k in BATCH_KEYS} for i in infos]))
+    family_check(
+        by_path, failures, "gemma3_mixed", run, spec, None,
+        {**dict.fromkeys(KERNELS, 0),
+         "paged_ragged_attention": per_server(ragged_group_dispatches=1),
+         "paged_decode_attention": per_server(batch_dispatches=1,
+                                              batch_solo_steps=1),
+         # chunks not fused into a ragged dispatch, and each session's
+         # 24-token follow-up (one T > 1 step, not chunked)
+         "paged_chunk_attention": per_server(prefill_chunks=1,
+                                             mixed_dispatches=-1)
+         + sum(run["server_layers"]) * len(prompts)},
+        held, identical=False,
+    )
+    if not sum(i["mixed_dispatches"] for i in infos):
+        failures.append("gemma3_mixed: no chunk mixed with decodes")
+    if any(i["ragged_declines"] for i in infos):
+        failures.append("gemma3_mixed: ragged declines")
+    del layers, client, local, run
+    torch.cuda.empty_cache()
+
+    say(f"[gemma] phase took {time.perf_counter() - t_phase:.1f} s")
+    say(card_line())
+    if failures:
+        raise AssertionError("gemma runs failed: " + "; ".join(failures))
     return by_path
 
 
@@ -4406,6 +4704,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         by_path = phase_serving(args.profile)
         by_path.update(phase_families())
+        by_path.update(phase_gemma())
     except Exception:
         traceback.print_exc()
         return 1

@@ -3,8 +3,9 @@ HF and the JAX package.
 
 - Registry: the port's spec of each family's config (tiny HF configs and
   the published Qwen3-8B, Qwen2.5-3B and Mistral-7B-v0.1 configs) equals
-  the JAX spec field for field; every JAX family the port does not serve
-  yet is refused naming ROADMAP Queue 1 item 15 by the registry,
+  the JAX spec field for field; the Gemma model types are served (their
+  tests are tests/test_torch_gemma.py); every JAX family the port does not
+  serve yet is refused naming ROADMAP Queue 1 item 15 by the registry,
   `BlockServer(model_dir=...)`, `run_server.main`, `from_pretrained` and
   `LocalDraftModel.from_dir`; an unknown model_type is a KeyError in both.
 - Weights: `init_block_params` makes the family extras (Qwen2's q/k/v
@@ -78,7 +79,7 @@ from test_torch_server import (  # noqa: F401  (fixtures)
 EPS = 1e-5
 BOUND_S = 60
 FAMILIES = ("mistral", "qwen2", "qwen3")
-UNPORTED = ("gemma2", "gemma4", "bloom", "falcon", "mixtral", "qwen3_moe")
+UNPORTED = ("gemma4", "bloom", "falcon", "mixtral", "qwen3_moe")
 
 
 def run(loop, coro):
@@ -180,6 +181,15 @@ def test_unknown_model_type_is_a_key_error_in_both():
     for get in (auto.get_family, j_auto.get_family):
         with pytest.raises(KeyError, match="unknown model family"):
             get("no-such-family")
+
+
+@pytest.mark.parametrize("model_type", ["gemma2", "gemma3", "gemma3_text"])
+def test_gemma_model_types_are_served(model_type):
+    """The Gemma model types the JAX registry knows are served by the
+    port's (tests/test_torch_gemma.py), neither refused nor unknown."""
+    assert model_type not in auto.UNPORTED
+    assert auto.get_family(model_type).name == model_type
+    assert j_auto.get_family(model_type).name == model_type
 
 
 @pytest.fixture(scope="module")
