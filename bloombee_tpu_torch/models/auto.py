@@ -3,10 +3,11 @@
 Keyed by the HF `model_type`: each family maps a config to a ModelSpec and
 loads one layer's parameters from a checkpoint (and, where its names or
 conventions differ from Llama's, the client's embeddings, final norm and
-head). The port serves llama, mistral, qwen2, qwen3, gemma2, gemma3 and
-gemma3_text. Every other family the JAX package serves raises
-NotImplementedError naming what it needs (`UNPORTED`, ROADMAP Queue 1 item
-15); a model_type neither package knows raises KeyError.
+head). The port serves llama, mistral, qwen2, qwen3, gemma2, gemma3,
+gemma3_text, mixtral and qwen3_moe. Every other family the JAX package
+serves raises NotImplementedError naming what it needs (`UNPORTED`,
+ROADMAP Queue 1 item 15); a model_type neither package knows raises
+KeyError.
 """
 
 from __future__ import annotations
@@ -23,8 +24,6 @@ UNPORTED = {
     "gemma4": "heterogeneous attention layers (runtime/hetero.py)",
     "bloom": "ALiBi (ops/alibi.py), LayerNorm and biased projections",
     "falcon": "LayerNorm, the parallel attention residual and fused QKV",
-    "mixtral": "the MoE MLP (ops/moe.py)",
-    "qwen3_moe": "the MoE MLP (ops/moe.py)",
 }
 
 
@@ -33,7 +32,8 @@ class Family:
     `loader(reader, layer_idx, dtype=, device=) -> dict` and, where the
     client's parameters are not under the Llama names as they are
     (`checkpoint.load_client_params`), a `client_loader(reader, dtype=,
-    device=) -> {"embed", "norm", "lm_head"}`."""
+    device=) -> {"embed", "norm", "lm_head"}`. An MoE family also names
+    its MLP's HF keys, `moe_keys` (`checkpoint.load_moe_block`)."""
 
     def __init__(
         self,
@@ -41,11 +41,13 @@ class Family:
         spec_fn: Callable[[Any], ModelSpec],
         loader: Callable,
         client_loader: Callable | None = None,
+        moe_keys: tuple | None = None,
     ):
         self.name = name
         self._spec_fn = spec_fn
         self._loader = loader
         self.client_loader = client_loader
+        self.moe_keys = moe_keys
 
     def spec_from_config_dict(self, config: dict) -> ModelSpec:
         return self._spec_fn(SimpleNamespace(**config))
@@ -91,6 +93,7 @@ def _register_builtins() -> None:
     # side-effect registrations
     import bloombee_tpu_torch.models.gemma2  # noqa: F401
     import bloombee_tpu_torch.models.mistral  # noqa: F401
+    import bloombee_tpu_torch.models.mixtral  # noqa: F401
     import bloombee_tpu_torch.models.qwen2  # noqa: F401
     import bloombee_tpu_torch.models.qwen3  # noqa: F401
 

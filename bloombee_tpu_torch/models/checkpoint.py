@@ -1,6 +1,7 @@
 """HF checkpoint reading for the port (port of
 bloombee_tpu/models/checkpoint.py), for every family of the registry
-(`models.auto`: Llama, Mistral, Qwen2, Qwen3, Gemma2, Gemma3).
+(`models.auto`: Llama, Mistral, Qwen2, Qwen3, Gemma2, Gemma3, Mixtral,
+Qwen3-MoE).
 
 A server loads only its span's layers; a client loads only the embeddings,
 the final norm and the LM head. Model directories are local paths
@@ -17,6 +18,10 @@ import pathlib
 
 import torch
 
+from bloombee_tpu_torch.models.llama.block import (
+    HF_ATTENTION_KEYS,
+    load_hf_block,
+)
 from bloombee_tpu_torch.models.spec import ModelSpec
 from bloombee_tpu_torch.utils.device import resolve_device
 
@@ -70,6 +75,56 @@ def read_tensor(reader: CheckpointReader, name: str, dtype=None,
     helper of the family loaders)."""
     w = reader.tensor(name)
     return w.to(device=resolve_device(device), dtype=dtype).contiguous()
+
+
+def stack_expert_weights(
+    reader: CheckpointReader, expert_fmt: str, gate_name: str, up_name: str,
+    down_name: str, n_experts: int, dtype=None, device="cuda",
+) -> dict:
+    """Per-expert gate/up/down matrices stacked into `experts_gate` /
+    `experts_up` [E, D, I] and `experts_down` [E, I, D] on `device` (the
+    dense-over-experts layout of the Mixtral and Qwen3-MoE loaders).
+    `expert_fmt` receives the expert index. Each expert's tensor is read
+    alone, moved to the device, transposed to [in, out] and copied into
+    its slot of the stacked tensor, allocated once: the host holds one
+    expert's matrix at a time and the device the layer's experts plus
+    one."""
+    device = resolve_device(device)
+    out = {}
+    for key, name in (("experts_gate", gate_name), ("experts_up", up_name),
+                      ("experts_down", down_name)):
+        stacked = None
+        for e in range(n_experts):
+            w = reader.tensor(f"{expert_fmt.format(e)}.{name}.weight")
+            if stacked is None:  # [out, in] in the checkpoint
+                stacked = torch.empty(
+                    (n_experts, w.shape[1], w.shape[0]),
+                    dtype=dtype or w.dtype, device=device,
+                )
+            stacked[e].copy_(w.to(device=device, dtype=stacked.dtype).t())
+        out[key] = stacked
+    return out
+
+
+def load_moe_block(reader, layer_idx: int, moe_keys: tuple, dtype=None,
+                   device="cuda") -> dict:
+    """An MoE layer of a checkpoint (Mixtral, Qwen3-MoE): the norms and
+    attention projections under the Llama names, the router as [D, E] and
+    the experts stacked (`stack_expert_weights`), under the family's
+    `moe_keys` = (router, experts' prefix, (gate, up, down)) below the
+    layer's prefix (`Family.moe_keys`, e.g. `models.mixtral.HF_MOE_KEYS`)."""
+    router, experts, names = moe_keys
+    p = f"model.layers.{layer_idx}"
+    params = load_hf_block(reader, layer_idx, dtype=dtype, device=device,
+                           keys=HF_ATTENTION_KEYS)
+    params["router"] = read_tensor(
+        reader, f"{p}.{router}.weight", dtype, device
+    ).t().contiguous()
+    params.update(stack_expert_weights(
+        reader, f"{p}.{experts}.{{}}", *names, params["router"].shape[1],
+        dtype, device,
+    ))
+    return params
 
 
 def load_spec(model_dir: str) -> ModelSpec:

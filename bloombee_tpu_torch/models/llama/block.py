@@ -1,12 +1,15 @@
 """The Llama-structured transformer block as a plain function (port of
 bloombee_tpu/models/llama/block.py), shared by the families the port
 serves: Mistral (the same block), Qwen2 (biased q/k/v projections), Qwen3
-(per-head q/k RMSNorm before rotary) and Gemma2/Gemma3 (sandwich norms
-around attention and the gated tanh-GELU MLP, q/k norms on Gemma3). The
-family extras are optional parameter keys, `{q,k,v}_bias` and
-`q_norm`/`k_norm`, applied where present, and spec switches
-(`sandwich_norms`, `mlp_type`), as the JAX package's family-generic layer
-body applies them.
+(per-head q/k RMSNorm before rotary), Gemma2/Gemma3 (sandwich norms
+around attention and the gated tanh-GELU MLP, q/k norms on Gemma3) and
+Mixtral/Qwen3-MoE (the mixture-of-experts MLP, `ops.moe`, in place of the
+dense one). The family extras are optional parameter keys, `{q,k,v}_bias`
+and `q_norm`/`k_norm`, applied where present, and spec switches
+(`sandwich_norms`, `mlp_type`, `num_experts`), as the JAX package's
+family-generic layer body applies them. An MoE layer holds `router` [D,
+E], `experts_gate`/`experts_up` [E, D, I] and `experts_down` [E, I, D]
+instead of `gate_proj`/`up_proj`/`down_proj`.
 
 Weight convention (kept from the JAX package): projection matrices are
 stored [in_features, out_features] and applied as `x @ w`, the transpose of
@@ -23,7 +26,7 @@ import torch
 
 from bloombee_tpu_torch.models.spec import ModelSpec
 from bloombee_tpu_torch.ops import apply_rotary, masked_attention, rms_norm
-from bloombee_tpu_torch.ops import gelu_tanh_mlp, silu_mlp
+from bloombee_tpu_torch.ops import gelu_tanh_mlp, moe_mlp, silu_mlp
 from bloombee_tpu_torch.ops.attention import causal_mask
 from bloombee_tpu_torch.utils.device import resolve_device
 
@@ -42,10 +45,11 @@ def init_block_params(
 ) -> dict:
     """Random block parameters: N(0, 1/D) projections (drawn in f32 on the
     generator's device), unit norms. The generator must live on `device`.
-    A Qwen2 spec also gets N(0, 1) q/k/v biases, a `qk_norm` spec unit
-    q/k norms and a `sandwich_norms` spec unit pre- and post-feedforward
-    norms, made after the Llama keys so a Llama spec's draws stay as they
-    were."""
+    An MoE spec draws the router and the stacked experts after the
+    attention projections, in place of the dense MLP. A Qwen2 spec also
+    gets N(0, 1) q/k/v biases, a `qk_norm` spec unit q/k norms and a
+    `sandwich_norms` spec unit pre- and post-feedforward norms, made after
+    the Llama keys so a Llama spec's draws stay as they were."""
     device = resolve_device(device)
     d, i = spec.hidden_size, spec.intermediate_size
     h, kv, hd = spec.num_attention_heads, spec.num_key_value_heads, spec.head_dim
@@ -64,10 +68,17 @@ def init_block_params(
         "k_proj": w((d, kv * hd)),
         "v_proj": w((d, kv * hd)),
         "o_proj": w((h * hd, d)),
-        "gate_proj": w((d, i)),
-        "up_proj": w((d, i)),
-        "down_proj": w((i, d)),
     }
+    e = spec.num_experts
+    if e:
+        params["router"] = w((d, e))
+        params["experts_gate"] = w((e, d, i))
+        params["experts_up"] = w((e, d, i))
+        params["experts_down"] = w((e, i, d))
+    else:
+        params["gate_proj"] = w((d, i))
+        params["up_proj"] = w((d, i))
+        params["down_proj"] = w((i, d))
     if spec.family == "qwen2":
         for name, n in (("q", h * hd), ("k", kv * hd), ("v", kv * hd)):
             params[f"{name}_bias"] = w((n,), 1.0)
@@ -135,7 +146,15 @@ def block_forward(
 
 
 def mlp(params: dict, spec: ModelSpec, x: torch.Tensor) -> torch.Tensor:
-    """The layer's gated MLP: SiLU, or Gemma's tanh-GELU."""
+    """The layer's gated MLP: the mixture of experts when the spec has
+    experts (JAX `_mlp`), else SiLU or Gemma's tanh-GELU."""
+    if spec.num_experts:
+        return moe_mlp(
+            x, params["router"], params["experts_gate"],
+            params["experts_up"], params["experts_down"],
+            spec.num_experts_per_tok, pre_softmax=spec.moe_pre_softmax,
+            norm_topk=spec.moe_norm_topk,
+        )
     fn = gelu_tanh_mlp if spec.mlp_type == "gelu_tanh_gated" else silu_mlp
     return fn(x, params["gate_proj"], params["up_proj"], params["down_proj"])
 
@@ -184,14 +203,19 @@ def dense_attend(
     return attend
 
 
-# HF checkpoint key mapping: per-layer torch name -> (our name, transpose?)
-HF_BLOCK_KEYS = {
+# HF checkpoint key mapping: per-layer torch name -> (our name, transpose?);
+# the norms and attention projections every family here shares, then the
+# dense MLP
+HF_ATTENTION_KEYS = {
     "input_layernorm.weight": ("input_layernorm", False),
     "post_attention_layernorm.weight": ("post_attention_layernorm", False),
     "self_attn.q_proj.weight": ("q_proj", True),
     "self_attn.k_proj.weight": ("k_proj", True),
     "self_attn.v_proj.weight": ("v_proj", True),
     "self_attn.o_proj.weight": ("o_proj", True),
+}
+HF_BLOCK_KEYS = {
+    **HF_ATTENTION_KEYS,
     "mlp.gate_proj.weight": ("gate_proj", True),
     "mlp.up_proj.weight": ("up_proj", True),
     "mlp.down_proj.weight": ("down_proj", True),
@@ -199,13 +223,13 @@ HF_BLOCK_KEYS = {
 
 
 def convert_hf_block_params(
-    tensors: dict, dtype=None, device="cuda"
+    tensors: dict, dtype=None, device="cuda", keys=HF_BLOCK_KEYS
 ) -> dict:
     """One decoder layer's HF tensors (suffix-keyed) to the port's dict,
     projections transposed to [in, out]."""
     device = resolve_device(device)
     out = {}
-    for hf_key, (name, transpose) in HF_BLOCK_KEYS.items():
+    for hf_key, (name, transpose) in keys.items():
         w = torch.as_tensor(tensors[hf_key])
         if transpose:
             w = w.t()
@@ -213,13 +237,17 @@ def convert_hf_block_params(
     return out
 
 
-def load_hf_block(reader, layer_idx: int, dtype=None, device="cuda") -> dict:
+def load_hf_block(reader, layer_idx: int, dtype=None, device="cuda",
+                  keys=HF_BLOCK_KEYS) -> dict:
     """Layer `layer_idx` of a checkpoint (`models.checkpoint.
     CheckpointReader`) in the Llama layout: the Llama family's loader, and
-    the base of the other Llama-like families' loaders."""
+    the base of the other Llama-like families' loaders (the MoE families'
+    `checkpoint.load_moe_block` reads `HF_ATTENTION_KEYS` and adds the
+    experts)."""
     prefix = f"model.layers.{layer_idx}"
-    tensors = {k: reader.tensor(f"{prefix}.{k}") for k in HF_BLOCK_KEYS}
-    return convert_hf_block_params(tensors, dtype=dtype, device=device)
+    tensors = {k: reader.tensor(f"{prefix}.{k}") for k in keys}
+    return convert_hf_block_params(tensors, dtype=dtype, device=device,
+                                   keys=keys)
 
 
 def params_from_jax(tree, dtype=None, device="cuda") -> list[dict]:
@@ -227,7 +255,8 @@ def params_from_jax(tree, dtype=None, device="cuda") -> list[dict]:
     per-layer dicts, or one dict stacked with a leading L — as the port's
     list of per-layer dicts of tensors. Same [in, out] layout: a copy of
     every key, the family extras (`{q,k,v}_bias`, `q_norm`/`k_norm`, the
-    Gemma norms) included."""
+    Gemma norms, an MoE layer's router and stacked experts, `[L, E, ...]`
+    when stacked) included."""
     device = resolve_device(device)
 
     def conv(x):

@@ -1,8 +1,10 @@
-"""Core numeric ops: norms, rotary embeddings, attention, MLP (port of
-bloombee_tpu/ops). The Pallas kernels' counterparts live in `ops/cuda`."""
+"""Core numeric ops: norms, rotary embeddings, attention, the dense and
+mixture-of-experts MLPs (port of bloombee_tpu/ops). The Pallas kernels'
+counterparts live in `ops/cuda`."""
 
 from bloombee_tpu_torch.ops.attention import masked_attention, repeat_kv
 from bloombee_tpu_torch.ops.mlp import gelu_tanh_mlp, silu_mlp
+from bloombee_tpu_torch.ops.moe import moe_mlp
 from bloombee_tpu_torch.ops.norms import rms_norm
 from bloombee_tpu_torch.ops.rotary import apply_rotary, rotary_cos_sin
 
@@ -14,4 +16,5 @@ __all__ = [
     "repeat_kv",
     "silu_mlp",
     "gelu_tanh_mlp",
+    "moe_mlp",
 ]

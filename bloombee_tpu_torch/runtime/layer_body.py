@@ -1,12 +1,13 @@
 """Transformer layer body of the paged span step for the families the
-port serves: Llama, Mistral, Qwen2, Qwen3, Gemma2 and Gemma3 (port of
-bloombee_tpu/runtime/layer_body.py).
+port serves: Llama, Mistral, Qwen2, Qwen3, Gemma2, Gemma3, Mixtral and
+Qwen3-MoE (port of bloombee_tpu/runtime/layer_body.py).
 
 RMSNorm, the projections (with Qwen2's q/k/v biases where the layer has
-them), the per-head q/k RMSNorm (Qwen3, Gemma3), rotary, the K/V scatter
-into the paged arena, attention (Gemma2's logit soft-cap on the dense
-routes) and the tail (`models.llama.block.finish_layer`: the Llama
-residual or Gemma's sandwich norms; the SiLU or tanh-GELU MLP). Sliding
+them), the per-head q/k RMSNorm (Qwen3, Gemma3, Qwen3-MoE), rotary, the
+K/V scatter into the paged arena, attention (Gemma2's logit soft-cap on
+the dense routes) and the tail (`models.llama.block.finish_layer`: the
+Llama residual or Gemma's sandwich norms; the SiLU, tanh-GELU or
+mixture-of-experts MLP, the same on every attention route). Sliding
 windows (Mistral, Gemma) arrive per layer from the executor, and so do
 the rotary tables (Gemma3's sliding layers use a local base). Attention
 routes three ways, as in the JAX package, on flags the executor sets per
@@ -21,7 +22,9 @@ step:
 
 `layer_body_ragged` is the layer of the ragged step (rows of several
 sessions packed as [1, R, D]): the ragged kernel when `use_kernel` is set,
-else the dense `attend_ragged` over every member's gathered pages.
+else the dense `attend_ragged` over every member's gathered pages. Its
+MoE tail routes each packed row alone, so a padding row changes no real
+row's experts.
 
 `dense_block_forward` is the same block over caller-supplied attention and
 no arena (`models.llama.block.block_forward`; the speculative drafter's
@@ -29,8 +32,8 @@ path).
 
 The kernels have no soft-cap: a soft-capped spec stays on the dense
 routes (the executor's gates, as in the JAX package), and a kernel route
-asked for one raises. The other families' structure (MoE, LayerNorm,
-ALiBi, the parallel residual, heterogeneous layers), LoRA and top-k
+asked for one raises. The other families' structure (LayerNorm, ALiBi,
+the parallel residual, heterogeneous layers, shared K=V), LoRA and top-k
 sparse attention are left out; the executor and the drafter refuse specs
 that need them (`unsupported`, `dense_unsupported`), naming ROADMAP
 Queue 1.
@@ -126,7 +129,8 @@ def unsupported(spec: ModelSpec) -> str | None:
     """Why this layer body cannot serve `spec`, naming the ROADMAP item
     that ports it; None when it can (Llama-structured blocks, with or
     without q/k/v biases, q/k norms and sliding windows; Gemma's sandwich
-    norms, tanh-GELU MLP, attention soft-cap and per-layer rope theta)."""
+    norms, tanh-GELU MLP, attention soft-cap and per-layer rope theta; the
+    mixture-of-experts MLP)."""
     reason = _unported_structure(spec)
     return None if reason is None else (
         f"{reason} (ROADMAP Queue 1 item 15)"
@@ -140,8 +144,8 @@ def _unported_structure(spec: ModelSpec) -> str | None:
         "silu", "gelu_tanh_gated"
     ):
         return f"{spec.norm_type} norm / {spec.mlp_type} MLP"
-    if spec.num_experts or spec.k_eq_v_full:
-        return "MoE / shared K=V projections"
+    if spec.k_eq_v_full:
+        return "shared K=V projections"
     if spec.alibi:
         return "ALiBi"
     if spec.parallel_attn:

@@ -228,6 +228,31 @@ Phases:
        teacher-forced; no flash.
    Prints each run's time to first token and per-token medians and the
    card's name and power limit.
+12. The MoE families through the port's registry (published configs,
+   random bf16 weights), two port BlockServers over the halves and the
+   port client, after the earlier phases' weights are freed; launch
+   counts reset and read around each run's sessions (paths "moe_qwen3",
+   "moe_mixtral", "moe_mixtral_mixed", "moe_qwen3_ckpt"):
+   (a) Qwen3-30B-A3B at published width and all 48 layers (128 experts,
+       top-8), `max_batch=1`: 2 sessions of 32 tokens from 1000-token
+       prompts and a 24-token follow-up with 2 more; tokens identical to
+       the solo executor over the same tensors; flash, paged decode and
+       chunk launched at the counts the path implies;
+   (b) Mixtral-8x7B-v0.1 at published width, 2 layers, written as a
+       `mixtral` checkpoint: servers built from the directory, the client
+       from `from_pretrained`; run 1 as (a), tokens identical to a solo
+       executor over the checkpoint; run 2 with `mixed_batch=True`,
+       `prefill_chunk=32`, `max_batch=8` and a third, late session
+       (decode rows sharing ragged launches with its chunks), launches
+       equal to the servers' dispatch counters; both runs held
+       teacher-forced against an f32 truth, the bf16-vs-f32 routing flips
+       counted;
+   (c) Qwen3-30B-A3B at published width, 4 layers, written as a
+       `qwen3_moe` checkpoint, served and held as run 1 of (b): its
+       softmax-then-top-8 router against an f32 truth.
+   Prints the byte reckoning, each run's time to first token, per-token
+   medians and peak allocated memory, the phase's seconds, and the
+   card's name and power limit.
 
 Prints the card's name and power limit, per-phase results, a
 `{"kernels": [...]}` line, and as its last line
@@ -3744,11 +3769,15 @@ def write_checkpoint(path: pathlib.Path, spec, seed: int,
     embeddings, final norm and head, an index), written a layer at a
     time. `config` is the config.json to write (default: a Llama one from
     `spec`); the layers carry the family's extras (`init_block_params`),
-    and a tied spec writes no lm_head."""
+    an MoE spec's layers its router and each expert's matrices under the
+    family's names (`Family.moe_keys`), and a tied spec writes no
+    lm_head."""
     import torch
     from safetensors.torch import save_file
 
+    from bloombee_tpu_torch.models.auto import get_family
     from bloombee_tpu_torch.models.llama.block import (
+        HF_ATTENTION_KEYS,
         HF_BLOCK_KEYS,
         init_block_params,
     )
@@ -3777,12 +3806,22 @@ def write_checkpoint(path: pathlib.Path, spec, seed: int,
     for i in range(spec.num_hidden_layers):
         layer = init_block_params(gen, spec, dtype=torch.bfloat16,
                                   device="cuda")
+        keys = HF_ATTENTION_KEYS if spec.num_experts else HF_BLOCK_KEYS
         tensors = {
             f"model.layers.{i}.{key}": (
                 layer[name].t() if transpose else layer[name]
             )
-            for key, (name, transpose) in HF_BLOCK_KEYS.items()
+            for key, (name, transpose) in keys.items()
         }
+        if spec.num_experts:
+            router, experts, names = get_family(spec.family).moe_keys
+            p = f"model.layers.{i}"
+            tensors[f"{p}.{router}.weight"] = layer["router"].t()
+            for e in range(spec.num_experts):
+                for key, name in zip(("experts_gate", "experts_up",
+                                      "experts_down"), names):
+                    tensors[f"{p}.{experts}.{e}.{name}.weight"] = \
+                        layer[key][e].t()
         tensors.update({f"model.layers.{i}.{key}": layer[name]
                         for name, key in HF_EXTRA_KEYS.items()
                         if name in layer})
@@ -4125,6 +4164,28 @@ FAMILY_CONFIGS = {
             ],
         },
         "torch_dtype": "bfloat16",
+    },
+    "qwen3-30b-a3b": {  # Qwen/Qwen3-30B-A3B
+        "model_type": "qwen3_moe", "architectures": ["Qwen3MoeForCausalLM"],
+        "hidden_size": 2048, "intermediate_size": 6144,
+        "moe_intermediate_size": 768, "num_attention_heads": 32,
+        "num_key_value_heads": 4, "head_dim": 128, "num_hidden_layers": 48,
+        "num_experts": 128, "num_experts_per_tok": 8, "norm_topk_prob": True,
+        "decoder_sparse_step": 1, "mlp_only_layers": [],
+        "vocab_size": 151936, "rms_norm_eps": 1e-6,
+        "rope_theta": 1000000.0, "max_position_embeddings": 40960,
+        "tie_word_embeddings": False, "use_sliding_window": False,
+        "sliding_window": None, "torch_dtype": "bfloat16",
+    },
+    "mixtral-8x7b-v0.1": {  # mistralai/Mixtral-8x7B-v0.1
+        "model_type": "mixtral", "architectures": ["MixtralForCausalLM"],
+        "hidden_size": 4096, "intermediate_size": 14336,
+        "num_attention_heads": 32, "num_key_value_heads": 8,
+        "num_hidden_layers": 32, "num_local_experts": 8,
+        "num_experts_per_tok": 2, "vocab_size": 32000,
+        "rms_norm_eps": 1e-5, "rope_theta": 1000000.0,
+        "max_position_embeddings": 32768, "sliding_window": None,
+        "tie_word_embeddings": False, "torch_dtype": "bfloat16",
     },
 }
 
@@ -4489,6 +4550,50 @@ def phase_families() -> dict:
 KERNELS = tuple(REPLACES)
 
 
+def session_inputs(gen, vocab: int, n: int, prompt_len: int):
+    """n random prompts of `prompt_len` tokens and n 24-token follow-ups,
+    on the card."""
+    import torch
+
+    return (torch.randint(0, vocab, (n, prompt_len), generator=gen,
+                          device="cuda"),
+            torch.randint(0, vocab, (n, 24), generator=gen, device="cuda"))
+
+
+def mixed_check(by_path, failures, path, run, spec, held) -> None:
+    """`family_check` of a mixed run (`mixed_batch`, `prefill_chunk`,
+    BBTPU_PAGED_MIN_CONTEXT=0, a late session): the launches its servers'
+    counters imply, each server's layers x its ragged dispatches
+    (ragged), its decode dispatches (decode), and its prefill chunks run
+    alone plus each session's 24-token follow-up (chunk), no flash;
+    held teacher-forced; some chunk mixed with decodes and no ragged
+    decline."""
+    infos = run["infos"]
+
+    def per_server(**signs):
+        # each server's layers x its counters, summed over the servers
+        return sum(n * sum(sg * info[k] for k, sg in signs.items())
+                   for n, info in zip(run["server_layers"], infos))
+
+    say(f"[{path}] batching "
+        + json.dumps([{k: i[k] for k in BATCH_KEYS} for i in infos]))
+    family_check(
+        by_path, failures, path, run, spec, None,
+        {**dict.fromkeys(KERNELS, 0),
+         "paged_ragged_attention": per_server(ragged_group_dispatches=1),
+         "paged_decode_attention": per_server(batch_dispatches=1,
+                                              batch_solo_steps=1),
+         "paged_chunk_attention": per_server(prefill_chunks=1,
+                                             mixed_dispatches=-1)
+         + sum(run["server_layers"]) * len(run["tokens"])},
+        held, identical=False,
+    )
+    if not sum(i["mixed_dispatches"] for i in infos):
+        failures.append(f"{path}: no chunk mixed with decodes")
+    if any(i["ragged_declines"] for i in infos):
+        failures.append(f"{path}: ragged declines")
+
+
 def tied_model(spec, seed: int):
     """Random bf16 layers (`init_block_params`: unit norms, Gemma's
     sandwich and q/k norms among them) and client parameters with a tied
@@ -4564,19 +4669,13 @@ def phase_gemma() -> dict:
     by_path, failures = {}, []
     n_new, sessions = 32, 2
 
-    def inputs(gen, vocab, n, prompt_len):
-        return (torch.randint(0, vocab, (n, prompt_len), generator=gen,
-                              device="cuda"),
-                torch.randint(0, vocab, (n, 24), generator=gen,
-                              device="cuda"))
-
     # (a) Gemma-2-27B, 8 layers: every route dense
     _, spec = family_config("gemma-2-27b", 8)
     layers, client, gen = tied_model(spec, seed=47)
     torch.cuda.synchronize()
     say(f"[gemma2] Gemma-2-27B bf16, {spec.num_hidden_layers} layers, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
-    prompts, follows = inputs(gen, spec.vocab_size, sessions, 1000)
+    prompts, follows = session_inputs(gen, spec.vocab_size, sessions, 1000)
     local = DistributedModelForCausalLM(spec, client, None, device="cuda")
     run = family_run("gemma-2-27b", spec, prompts, follows, n_new, {},
                      layers=layers, client=client)
@@ -4595,7 +4694,7 @@ def phase_gemma() -> dict:
     say(f"[gemma3] Gemma-3-27B bf16, {spec.num_hidden_layers} layers, "
         f"windows {[spec.window_for_layer(i) for i in range(12)]}, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
-    prompts, follows = inputs(gen, spec.vocab_size, 3, 1500)
+    prompts, follows = session_inputs(gen, spec.vocab_size, 3, 1500)
     local = DistributedModelForCausalLM(spec, client, None, device="cuda")
     run = family_run("gemma-3-27b", spec, prompts[:sessions],
                      follows[:sessions], n_new, {}, layers=layers,
@@ -4628,33 +4727,7 @@ def phase_gemma() -> dict:
         held = family_teacher_forced(layers, spec, local, prompts, follows,
                                      run, n_new, chunk=chunk,
                                      dense_truth=True)
-
-    infos = run["infos"]
-
-    def per_server(**signs):
-        # each server's layers x its counters, summed over the servers
-        return sum(n * sum(sg * info[k] for k, sg in signs.items())
-                   for n, info in zip(run["server_layers"], infos))
-
-    say("[gemma3_mixed] batching "
-        + json.dumps([{k: i[k] for k in BATCH_KEYS} for i in infos]))
-    family_check(
-        by_path, failures, "gemma3_mixed", run, spec, None,
-        {**dict.fromkeys(KERNELS, 0),
-         "paged_ragged_attention": per_server(ragged_group_dispatches=1),
-         "paged_decode_attention": per_server(batch_dispatches=1,
-                                              batch_solo_steps=1),
-         # chunks not fused into a ragged dispatch, and each session's
-         # 24-token follow-up (one T > 1 step, not chunked)
-         "paged_chunk_attention": per_server(prefill_chunks=1,
-                                             mixed_dispatches=-1)
-         + sum(run["server_layers"]) * len(prompts)},
-        held, identical=False,
-    )
-    if not sum(i["mixed_dispatches"] for i in infos):
-        failures.append("gemma3_mixed: no chunk mixed with decodes")
-    if any(i["ragged_declines"] for i in infos):
-        failures.append("gemma3_mixed: ragged declines")
+    mixed_check(by_path, failures, "gemma3_mixed", run, spec, held)
     del layers, client, local, run
     torch.cuda.empty_cache()
 
@@ -4662,6 +4735,308 @@ def phase_gemma() -> dict:
     say(card_line())
     if failures:
         raise AssertionError("gemma runs failed: " + "; ".join(failures))
+    return by_path
+
+
+# ------------------------------------------------------------- phase 12
+def moe_bytes(spec) -> dict:
+    """The byte reckoning of an MoE spec in bf16: experts and attention a
+    layer, the whole span's weights, the client's embedding and head, the
+    KV a token across the layers (GB, KB)."""
+    d, i, e = spec.hidden_size, spec.intermediate_size, spec.num_experts
+    h, kv, hd = spec.num_attention_heads, spec.num_key_value_heads, \
+        spec.head_dim
+    experts = 3 * e * d * i * 2
+    attention = (2 * d * h * hd + 2 * d * kv * hd) * 2
+    return {
+        "experts_gb_a_layer": experts / 1e9,
+        "attention_gb_a_layer": attention / 1e9,
+        "layers_gb": spec.num_hidden_layers * (experts + attention) / 1e9,
+        "embed_and_head_gb": 2 * spec.vocab_size * d * 2 / 1e9,
+        "kv_kb_a_token": spec.num_hidden_layers * 2 * kv * hd * 2 / 1e3,
+    }
+
+
+def routing_flips(layers, spec, local, prompts, follows, tokens,
+                  n_new) -> dict:
+    """Where the bf16 layers and their f32 copies pick different experts
+    on a run's teacher-forced sequences: each session's prompt, the tokens
+    it was fed (the run's own), its follow-up and the token after it, run
+    whole through the layers (dense causal attention) in each dtype from
+    the same bf16 embeddings; at each layer the picks are the nonzero
+    `ops.moe.router_topk_weights` of its post-attention-normed input.
+    Returns the (layer, position) decisions compared and how many differ,
+    per layer."""
+    import torch
+
+    from bloombee_tpu_torch.models.llama.block import (
+        attention_inputs,
+        dense_attend,
+        mlp,
+        proj,
+    )
+    from bloombee_tpu_torch.ops import rms_norm
+    from bloombee_tpu_torch.ops.moe import router_topk_weights
+    from bloombee_tpu_torch.runtime.step import rotary_tables
+
+    eps = spec.rms_norm_eps
+    flips, decisions = [0] * len(layers), 0
+    for i in range(len(prompts)):
+        fed = tokens[i].to("cuda")
+        parts = [prompts[i], fed[: n_new - 1]]
+        if follows is not None:
+            parts += [follows[i], fed[n_new : n_new + 1]]
+        ids = torch.cat(parts)[None]
+        x = local.embed(ids).to(torch.bfloat16)
+        pos = torch.arange(ids.shape[1], device="cuda")[None]
+        picks = {}
+        for dtype in (torch.bfloat16, torch.float32):
+            cos, sin = rotary_tables(spec, pos, dtype, (0,))[0]
+            h = x.to(dtype)
+            for l, layer in enumerate(layers):
+                p = {k: v.to(dtype) for k, v in layer.items()}
+                q, k, v = attention_inputs(
+                    p, spec, rms_norm(h, p["input_layernorm"], eps), cos,
+                    sin,
+                )
+                attn, _ = dense_attend()(q, k, v)
+                h = h + proj(attn.flatten(-2), p, "o_proj")
+                normed = rms_norm(h, p["post_attention_layernorm"], eps)
+                w = router_topk_weights(
+                    normed @ p["router"], spec.num_experts_per_tok,
+                    spec.moe_pre_softmax, spec.moe_norm_topk,
+                )
+                picks.setdefault(l, []).append(w[0] > 0)
+                h = h + mlp(p, spec, normed)
+            del h
+        for l, (bf16, f32) in picks.items():
+            flips[l] += int((bf16 != f32).any(-1).sum().item())
+        decisions += len(layers) * ids.shape[1]
+    torch.cuda.empty_cache()
+    return {"decisions": decisions, "flipped": sum(flips),
+            "flipped_by_layer": flips}
+
+
+def reset_peak() -> None:
+    """Just before a run's servers start, garbage (an earlier run's
+    servers in reference cycles) collected: the peak is the run's weights,
+    arenas and transients."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def say_peak(path: str) -> None:
+    import torch
+
+    gib = torch.cuda.max_memory_allocated() / 2**30
+    say(f"[{path}] peak torch.cuda.max_memory_allocated {gib:.2f} GiB")
+
+
+def moe_checkpoint_run(by_path, failures, path, uid, tmp, spec, prompts,
+                       follows, n_new):
+    """`max_batch=1` sessions on servers built from the checkpoint in
+    `tmp` and a `from_pretrained` client; tokens identical to an
+    in-process solo executor over the checkpoint; flash = 2 a layer a
+    session (512 + 488), paged decode = n_new and chunk = 1 a layer a
+    session; held teacher-forced against an f32 truth, the routing flips
+    counted. Returns the solo executor's layers and client model."""
+    import torch
+
+    from bloombee_tpu_torch.client import DistributedModelForCausalLM
+    from bloombee_tpu_torch.models.checkpoint import (
+        load_client_params,
+        load_span_params,
+    )
+
+    reset_peak()
+    run = family_run(uid, spec, prompts, follows, n_new, {}, model_dir=tmp)
+    say_peak(path)
+    layers, _ = load_span_params(str(tmp), 0, spec.num_hidden_layers,
+                                 dtype=torch.bfloat16, device="cuda")
+    local = DistributedModelForCausalLM(
+        spec, load_client_params(str(tmp), device="cuda"), None,
+        device="cuda",
+    )
+    solo = served_reference(layers, spec, local, prompts, follows, n_new)[0]
+    per = spec.num_hidden_layers * len(prompts)
+    held = family_teacher_forced(layers, spec, local, prompts, follows, run,
+                                 n_new)
+    held["routing_flips"] = routing_flips(
+        layers, spec, local, prompts, follows, run["tokens"], n_new,
+    )
+    family_check(
+        by_path, failures, path, run, spec, [t for _, t in solo],
+        {**dict.fromkeys(KERNELS, 0), "flash_attention": 2 * per,
+         "paged_decode_attention": n_new * per,
+         "paged_chunk_attention": per},
+        held,
+    )
+    return layers, local
+
+
+def phase_moe() -> dict:
+    """Phase 12: the MoE families through the port's registry (published
+    configs, random bf16 weights), each run served by two port
+    BlockServers over the halves of the model and the port client, launch
+    counts reset and read around each run's sessions (paths "moe_qwen3",
+    "moe_mixtral", "moe_mixtral_mixed", "moe_qwen3_ckpt"):
+
+    (a) Qwen3-30B-A3B at published width and all 48 layers (32/4 heads of
+        128, q/k norms, 128 experts of 768 with top-8 renormalised),
+        [0, 24) + [24, 48), `max_batch=1`: 2 sessions of 32 tokens from
+        1000-token prompts and a 24-token follow-up with 2 more. Tokens
+        identical to the sessions solo on one executor over the same
+        parameter tensors (no second copy fits); flash = 2 a layer a
+        session (512 + 488), paged decode = n_new a layer a session, chunk
+        = 1 a layer a session (the follow-up). No f32 truth at this depth:
+        (c) holds the family's router against one.
+    (b) Mixtral-8x7B-v0.1 at published width (32/8 heads of 128, 8
+        experts of 14336 with top-2), 2 layers, written as a `mixtral`
+        checkpoint with HF names: servers built from the directory over
+        [0, 1) + [1, 2), the client from `from_pretrained`;
+        run 1, `max_batch=1` (`moe_checkpoint_run`): the sessions and
+        launch counts of (a), tokens identical to an in-process solo
+        executor over the checkpoint;
+        run 2, `mixed_batch=True`, `prefill_chunk=32`, `max_batch=8`,
+        BBTPU_PAGED_MIN_CONTEXT=0 and a 20 ms gather window: the two
+        sessions and a third sent once they have decoded 8 tokens, so
+        decode rows share ragged launches with its prefill chunks; ragged,
+        decode and chunk launches equal to the servers' layers x their
+        ragged dispatches, decode dispatches, and unfused chunks plus
+        follow-ups; no flash.
+        Both runs held teacher-forced against an f32 truth of the 2 layers
+        (`hold_teacher_forced`); the positions where the bf16 and f32
+        routers pick different experts on each run's sequences are
+        counted (`routing_flips`).
+    (c) Qwen3-30B-A3B at published width, 4 layers, written as a
+        `qwen3_moe` checkpoint (`mlp.gate`, `mlp.experts.{e}.*_proj`),
+        served over [0, 2) + [2, 4) as run 1 of (b): tokens identical to
+        the solo executor over the checkpoint, the launches of (a), held
+        teacher-forced against an f32 truth of the 4 layers, routing flips
+        counted.
+
+    Prints the byte reckoning, each run's time to first token, per-token
+    medians and peak `torch.cuda.max_memory_allocated`, the phase's
+    seconds, and the card's name and power limit; returns the launches by
+    path."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    from bloombee_tpu_torch.client import DistributedModelForCausalLM
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"[moe] {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"allocated before the phase")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    by_path, failures = {}, []
+    n_new, sessions = 32, 2
+
+    def bytes_line(path, spec):
+        say(f"[{path}] bytes " + json.dumps(
+            {k: round(v, 4) for k, v in moe_bytes(spec).items()}
+        ))
+
+    def written(path, spec, config, seed):
+        tmp = pathlib.Path(tempfile.mkdtemp(prefix=f"bbtpu-{path}-"))
+        t0 = time.perf_counter()
+        write_checkpoint(tmp, spec, seed=seed, config=config)
+        say(f"[{path}] checkpoint written in "
+            f"{time.perf_counter() - t0:.2f} s")
+        return tmp
+
+    # (a) Qwen3-30B-A3B, all 48 layers
+    _, spec = family_config("qwen3-30b-a3b", 48)
+    bytes_line("moe_qwen3", spec)
+    layers, client, gen = random_model(spec, torch.bfloat16, seed=59)
+    torch.cuda.synchronize()
+    say(f"[moe_qwen3] Qwen3-30B-A3B bf16, {spec.num_hidden_layers} layers, "
+        f"{spec.num_experts} experts top-{spec.num_experts_per_tok}, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    prompts, follows = session_inputs(gen, spec.vocab_size, sessions, 1000)
+    local = DistributedModelForCausalLM(spec, client, None, device="cuda")
+    reset_peak()
+    run = family_run("qwen3-30b-a3b", spec, prompts, follows, n_new, {},
+                     layers=layers, client=client)
+    say_peak("moe_qwen3")
+    solo = served_reference(layers, spec, local, prompts, follows, n_new)[0]
+    per = spec.num_hidden_layers * sessions
+    family_check(
+        by_path, failures, "moe_qwen3", run, spec, [t for _, t in solo],
+        {**dict.fromkeys(KERNELS, 0), "flash_attention": 2 * per,
+         "paged_decode_attention": n_new * per,
+         "paged_chunk_attention": per},
+    )
+    del layers, client, local, run, solo
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) Mixtral-8x7B-v0.1, 2 layers, from a checkpoint
+    config, spec = family_config("mixtral-8x7b-v0.1", 2)
+    bytes_line("moe_mixtral", spec)
+    tmp = written("moe_mixtral", spec, config, seed=61)
+    try:
+        gen = torch.Generator(device="cuda").manual_seed(67)
+        prompts, follows = session_inputs(gen, spec.vocab_size, 3, 1000)
+        layers, local = moe_checkpoint_run(
+            by_path, failures, "moe_mixtral", "mixtral-8x7b", tmp, spec,
+            prompts[:sessions], follows[:sessions], n_new,
+        )
+
+        chunk = 32
+        reset_peak()
+        with env_set("BBTPU_PAGED_MIN_CONTEXT", "0"), \
+                env_set("BBTPU_BATCH_WINDOW_MS", "20"):
+            run = family_run(
+                "mixtral-8x7b-mixed", spec, prompts, follows, n_new,
+                {"max_batch": 8, "mixed_batch": True,
+                 "prefill_chunk": chunk},
+                model_dir=tmp, late=True,
+            )
+            say_peak("moe_mixtral_mixed")
+            held = family_teacher_forced(layers, spec, local, prompts,
+                                         follows, run, n_new, chunk=chunk)
+        held["routing_flips"] = routing_flips(
+            layers, spec, local, prompts, follows, run["tokens"], n_new,
+        )
+        mixed_check(by_path, failures, "moe_mixtral_mixed", run, spec, held)
+        say(f"[moe_mixtral_mixed] ragged launches "
+            f"{run['launches'].get('paged_ragged_attention', 0)}")
+        del layers, local, run
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) Qwen3-30B-A3B, 4 layers, from a checkpoint, against an f32 truth
+    config, spec = family_config("qwen3-30b-a3b", 4)
+    bytes_line("moe_qwen3_ckpt", spec)
+    tmp = written("moe_qwen3_ckpt", spec, config, seed=71)
+    try:
+        gen = torch.Generator(device="cuda").manual_seed(73)
+        prompts, follows = session_inputs(gen, spec.vocab_size, sessions,
+                                          1000)
+        moe_checkpoint_run(by_path, failures, "moe_qwen3_ckpt",
+                           "qwen3-30b-a3b-4", tmp, spec, prompts, follows,
+                           n_new)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    say(f"[moe] phase took {time.perf_counter() - t_phase:.1f} s")
+    say(card_line())
+    if failures:
+        raise AssertionError("moe runs failed: " + "; ".join(failures))
     return by_path
 
 
@@ -4705,6 +5080,7 @@ def main() -> int:
         by_path = phase_serving(args.profile)
         by_path.update(phase_families())
         by_path.update(phase_gemma())
+        by_path.update(phase_moe())
     except Exception:
         traceback.print_exc()
         return 1

@@ -4,7 +4,8 @@ HF and the JAX package.
 - Registry: the port's spec of each family's config (tiny HF configs and
   the published Qwen3-8B, Qwen2.5-3B and Mistral-7B-v0.1 configs) equals
   the JAX spec field for field; the Gemma model types are served (their
-  tests are tests/test_torch_gemma.py); every JAX family the port does not
+  tests are tests/test_torch_gemma.py), and so are the MoE ones
+  (tests/test_torch_moe.py); every JAX family the port does not
   serve yet is refused naming ROADMAP Queue 1 item 15 by the registry,
   `BlockServer(model_dir=...)`, `run_server.main`, `from_pretrained` and
   `LocalDraftModel.from_dir`; an unknown model_type is a KeyError in both.
@@ -79,7 +80,7 @@ from test_torch_server import (  # noqa: F401  (fixtures)
 EPS = 1e-5
 BOUND_S = 60
 FAMILIES = ("mistral", "qwen2", "qwen3")
-UNPORTED = ("gemma4", "bloom", "falcon", "mixtral", "qwen3_moe")
+UNPORTED = ("gemma4", "bloom", "falcon")
 
 
 def run(loop, coro):
@@ -313,10 +314,10 @@ def test_init_block_params_makes_the_family_extras():
 def test_layer_body_serves_the_families_and_names_item_15_otherwise():
     for case in LAYER_SPECS:
         assert t_body.unsupported(specs(case)[1]) is None
-    moe = dataclasses.replace(specs("qwen3")[1], family="qwen3_moe",
-                              num_experts=4, num_experts_per_tok=2)
-    assert t_body.unsupported(moe) == (
-        "MoE / shared K=V projections (ROADMAP Queue 1 item 15)"
+    shared_kv = dataclasses.replace(specs("qwen3")[1], family="gemma4",
+                                    k_eq_v_full=True)
+    assert t_body.unsupported(shared_kv) == (
+        "shared K=V projections (ROADMAP Queue 1 item 15)"
     )
 
 

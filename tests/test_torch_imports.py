@@ -1,5 +1,6 @@
 """The port imports nothing of JAX or of the JAX package, nor a package the
-card's machine lacks, and chip_smoke.py refuses to run without a GPU.
+card's machine lacks, and chip_smoke.py refuses to run without a GPU;
+each module of `models/` imports first in a fresh interpreter.
 
 Both checks run in one fresh interpreter (the test process itself has JAX
 loaded, for the parity tests): it blocks `jax`, `bloombee_tpu`, `msgpack`,
@@ -89,9 +90,32 @@ def test_port_imports_with_jax_and_the_jax_package_blocked(probe):
         "bloombee_tpu_torch.cli.run_server",
         "bloombee_tpu_torch.cli.run_registry",
         "bloombee_tpu_torch.cli.health",
+        "bloombee_tpu_torch.models.mixtral",
+        "bloombee_tpu_torch.ops.moe",
     ):
         assert name in probe["modules"]
-    assert len(probe["modules"]) >= 67  # every module was walked
+    assert len(probe["modules"]) >= 69  # every module was walked
+
+
+MODELS = REPO / "bloombee_tpu_torch" / "models"
+MODEL_MODULES = sorted(
+    ".".join(("bloombee_tpu_torch", "models",
+              *p.relative_to(MODELS).with_suffix("").parts))
+    for p in MODELS.rglob("*.py") if p.name != "__init__.py"
+)
+
+
+@pytest.mark.parametrize("module", MODEL_MODULES)
+def test_model_module_imports_first(module):
+    """Each module of `models/` imports first in a fresh interpreter: the
+    registry's imports of the family modules form no cycle whichever of
+    them a caller imports first (a checkpoint writer may start with
+    `models.mixtral`)."""
+    out = subprocess.run(
+        [sys.executable, "-c", f"import {module}"], cwd=REPO,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
 
 
 def test_chip_smoke_fails_without_a_gpu(probe):
