@@ -134,7 +134,8 @@ class DistributedModelForCausalLM:
         """Token ids [B, T] -> f32 hidden states [B, T, D] on the device."""
         ids = _ids(input_ids).to(self.device)
         return embed_impl(
-            self.params, ids, self.spec.embedding_multiplier
+            self.params, ids, self.spec.embedding_multiplier,
+            "embed_norm" in self.params, self.spec.rms_norm_eps,
         ).float()
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
@@ -145,10 +146,11 @@ class DistributedModelForCausalLM:
         if self.config.use_chunked_head:
             return norm_head_chunked(
                 self.params, hidden, spec.rms_norm_eps,
-                spec.logits_soft_cap, step=self.config.chunked_head_step,
+                spec.logits_soft_cap, spec.norm_type,
+                step=self.config.chunked_head_step,
             )
         return norm_head_impl(self.params, hidden, spec.rms_norm_eps,
-                              spec.logits_soft_cap)
+                              spec.logits_soft_cap, spec.norm_type)
 
     def inference_session(
         self, max_length: int, batch_size: int = 1,

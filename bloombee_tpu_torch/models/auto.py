@@ -4,10 +4,10 @@ Keyed by the HF `model_type`: each family maps a config to a ModelSpec and
 loads one layer's parameters from a checkpoint (and, where its names or
 conventions differ from Llama's, the client's embeddings, final norm and
 head). The port serves llama, mistral, qwen2, qwen3, gemma2, gemma3,
-gemma3_text, mixtral and qwen3_moe. Every other family the JAX package
-serves raises NotImplementedError naming what it needs (`UNPORTED`,
-ROADMAP Queue 1 item 15); a model_type neither package knows raises
-KeyError.
+gemma3_text, mixtral, qwen3_moe and bloom. Every other family the JAX
+package serves raises NotImplementedError naming what it needs
+(`UNPORTED`, ROADMAP Queue 1 item 15); a model_type neither package knows
+raises KeyError.
 """
 
 from __future__ import annotations
@@ -22,8 +22,8 @@ _REGISTRY: dict[str, "Family"] = {}
 # model_type -> what the port lacks to serve it
 UNPORTED = {
     "gemma4": "heterogeneous attention layers (runtime/hetero.py)",
-    "bloom": "ALiBi (ops/alibi.py), LayerNorm and biased projections",
-    "falcon": "LayerNorm, the parallel attention residual and fused QKV",
+    "falcon": "the parallel attention residual and its fused multi-query "
+    "QKV",
 }
 
 
@@ -32,7 +32,8 @@ class Family:
     `loader(reader, layer_idx, dtype=, device=) -> dict` and, where the
     client's parameters are not under the Llama names as they are
     (`checkpoint.load_client_params`), a `client_loader(reader, dtype=,
-    device=) -> {"embed", "norm", "lm_head"}`. An MoE family also names
+    device=) -> {"embed", "norm", "lm_head"}` (Bloom's adds
+    "embed_norm", "embed_norm_bias" and "norm_bias"). An MoE family also names
     its MLP's HF keys, `moe_keys` (`checkpoint.load_moe_block`)."""
 
     def __init__(
@@ -91,6 +92,7 @@ def _register_builtins() -> None:
 
     register_family(Family("llama", llama_spec_from_hf, load_hf_block))
     # side-effect registrations
+    import bloombee_tpu_torch.models.bloom  # noqa: F401
     import bloombee_tpu_torch.models.gemma2  # noqa: F401
     import bloombee_tpu_torch.models.mistral  # noqa: F401
     import bloombee_tpu_torch.models.mixtral  # noqa: F401

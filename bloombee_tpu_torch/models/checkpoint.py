@@ -1,7 +1,7 @@
 """HF checkpoint reading for the port (port of
 bloombee_tpu/models/checkpoint.py), for every family of the registry
 (`models.auto`: Llama, Mistral, Qwen2, Qwen3, Gemma2, Gemma3, Mixtral,
-Qwen3-MoE).
+Qwen3-MoE, Bloom).
 
 A server loads only its span's layers; a client loads only the embeddings,
 the final norm and the LM head. Model directories are local paths
@@ -155,7 +155,8 @@ def load_span_params(
 def load_client_params(model_dir: str, dtype=None, device="cuda") -> dict:
     """Embeddings + final norm + LM head ([D, V]; the embedding's transpose
     when the checkpoint ties them), through the family's `client_loader`
-    when it has one (Gemma), else under the Llama names."""
+    when it has one (Gemma; Bloom, with its embedding LayerNorm and the
+    final norm's bias), else under the Llama names."""
     from bloombee_tpu_torch.models.auto import get_family
 
     device = resolve_device(device)

@@ -2,14 +2,17 @@
 bloombee_tpu/models/llama/block.py), shared by the families the port
 serves: Mistral (the same block), Qwen2 (biased q/k/v projections), Qwen3
 (per-head q/k RMSNorm before rotary), Gemma2/Gemma3 (sandwich norms
-around attention and the gated tanh-GELU MLP, q/k norms on Gemma3) and
+around attention and the gated tanh-GELU MLP, q/k norms on Gemma3),
 Mixtral/Qwen3-MoE (the mixture-of-experts MLP, `ops.moe`, in place of the
-dense one). The family extras are optional parameter keys, `{q,k,v}_bias`
-and `q_norm`/`k_norm`, applied where present, and spec switches
-(`sandwich_norms`, `mlp_type`, `num_experts`), as the JAX package's
-family-generic layer body applies them. An MoE layer holds `router` [D,
-E], `experts_gate`/`experts_up` [E, D, I] and `experts_down` [E, I, D]
-instead of `gate_proj`/`up_proj`/`down_proj`.
+dense one) and Bloom (LayerNorm with biases, every projection biased, no
+rotary: its ALiBi bias lives in the attention routes, and the plain 4h
+tanh-GELU MLP). The family extras are optional parameter keys,
+`{q,k,v,o,up,down}_bias`, `{norm}_bias` and `q_norm`/`k_norm`, applied
+where present, and spec switches (`norm_type`, `alibi`, `sandwich_norms`,
+`mlp_type`, `num_experts`), as the JAX package's family-generic layer
+body applies them. An MoE layer holds `router` [D, E], `experts_gate`/
+`experts_up` [E, D, I] and `experts_down` [E, I, D] instead of
+`gate_proj`/`up_proj`/`down_proj`; a plain-MLP layer has no `gate_proj`.
 
 Weight convention (kept from the JAX package): projection matrices are
 stored [in_features, out_features] and applied as `x @ w`, the transpose of
@@ -26,7 +29,8 @@ import torch
 
 from bloombee_tpu_torch.models.spec import ModelSpec
 from bloombee_tpu_torch.ops import apply_rotary, masked_attention, rms_norm
-from bloombee_tpu_torch.ops import gelu_tanh_mlp, moe_mlp, silu_mlp
+from bloombee_tpu_torch.ops import gelu_mlp, gelu_tanh_mlp, moe_mlp, silu_mlp
+from bloombee_tpu_torch.ops import layer_norm
 from bloombee_tpu_torch.ops.attention import causal_mask
 from bloombee_tpu_torch.utils.device import resolve_device
 
@@ -46,10 +50,12 @@ def init_block_params(
     """Random block parameters: N(0, 1/D) projections (drawn in f32 on the
     generator's device), unit norms. The generator must live on `device`.
     An MoE spec draws the router and the stacked experts after the
-    attention projections, in place of the dense MLP. A Qwen2 spec also
-    gets N(0, 1) q/k/v biases, a `qk_norm` spec unit q/k norms and a
-    `sandwich_norms` spec unit pre- and post-feedforward norms, made after
-    the Llama keys so a Llama spec's draws stay as they were."""
+    attention projections, in place of the dense MLP; a plain-MLP spec
+    (Bloom) draws no gate. A Qwen2 spec also gets N(0, 1) q/k/v biases, a
+    `qk_norm` spec unit q/k norms, a `sandwich_norms` spec unit pre- and
+    post-feedforward norms and a LayerNorm spec biases of standard
+    deviation 0.1 on both norms and every projection, made after the
+    Llama keys so a Llama spec's draws stay as they were."""
     device = resolve_device(device)
     d, i = spec.hidden_size, spec.intermediate_size
     h, kv, hd = spec.num_attention_heads, spec.num_key_value_heads, spec.head_dim
@@ -76,7 +82,8 @@ def init_block_params(
         params["experts_up"] = w((e, d, i))
         params["experts_down"] = w((e, i, d))
     else:
-        params["gate_proj"] = w((d, i))
+        if _gated(spec):
+            params["gate_proj"] = w((d, i))
         params["up_proj"] = w((d, i))
         params["down_proj"] = w((i, d))
     if spec.family == "qwen2":
@@ -89,7 +96,28 @@ def init_block_params(
         for name in ("pre_feedforward_layernorm",
                      "post_feedforward_layernorm"):
             params[name] = torch.ones((d,), dtype=dtype, device=device)
+    if spec.norm_type == "ln":
+        for name, n in (("input_layernorm_bias", d),
+                        ("post_attention_layernorm_bias", d),
+                        ("q_bias", h * hd), ("k_bias", kv * hd),
+                        ("v_bias", kv * hd), ("o_bias", d), ("up_bias", i),
+                        ("down_bias", d)):
+            params[name] = w((n,), 0.1)
     return params
+
+
+def _gated(spec: ModelSpec) -> bool:
+    return spec.mlp_type in ("silu", "gelu_tanh_gated")
+
+
+def norm(x: torch.Tensor, params: dict, key: str,
+         spec: ModelSpec) -> torch.Tensor:
+    """The layer's norm `key`: LayerNorm with `{key}_bias` where the layer
+    has one for a LayerNorm spec (Bloom), else RMSNorm (JAX `_norm`)."""
+    if spec.norm_type == "ln":
+        return layer_norm(x, params[key], params.get(f"{key}_bias"),
+                          spec.rms_norm_eps)
+    return rms_norm(x, params[key], spec.rms_norm_eps)
 
 
 def proj(x: torch.Tensor, params: dict, key: str) -> torch.Tensor:
@@ -109,7 +137,8 @@ def attention_inputs(
 ):
     """q [..., T, H, hd] and k, v [..., T, Hkv, hd] of a layer: the
     (biased) projections, Qwen3's per-head q/k RMSNorm, then rotary on q
-    and k."""
+    and k (none for an ALiBi spec: its position bias is added to the
+    attention logits)."""
     lead = x.shape[:-1]
     q = proj(x, params, "q_proj").reshape(
         *lead, spec.num_attention_heads, spec.head_dim
@@ -123,7 +152,8 @@ def attention_inputs(
     if spec.qk_norm:
         q = rms_norm(q, params["q_norm"], spec.rms_norm_eps)
         k = rms_norm(k, params["k_norm"], spec.rms_norm_eps)
-    q, k = apply_rotary(q, k, cos, sin)
+    if not spec.alibi:
+        q, k = apply_rotary(q, k, cos, sin)
     return q, k, v
 
 
@@ -136,7 +166,7 @@ def block_forward(
     attend: Attend,
 ) -> tuple[torch.Tensor, Any]:
     b, t, _ = hidden.shape
-    x = rms_norm(hidden, params["input_layernorm"], spec.rms_norm_eps)
+    x = norm(hidden, params, "input_layernorm", spec)
     q, k, v = attention_inputs(params, spec, x, cos, sin)
 
     attn_out, aux = attend(q, k, v)
@@ -146,8 +176,10 @@ def block_forward(
 
 
 def mlp(params: dict, spec: ModelSpec, x: torch.Tensor) -> torch.Tensor:
-    """The layer's gated MLP: the mixture of experts when the spec has
-    experts (JAX `_mlp`), else SiLU or Gemma's tanh-GELU."""
+    """The layer's MLP (JAX `_mlp`): the mixture of experts when the spec
+    has experts, else the gated SiLU or Gemma's gated tanh-GELU, or the
+    plain 4h GELU with biases ("gelu_tanh": Bloom's tanh form; "gelu":
+    exact)."""
     if spec.num_experts:
         return moe_mlp(
             x, params["router"], params["experts_gate"],
@@ -155,6 +187,10 @@ def mlp(params: dict, spec: ModelSpec, x: torch.Tensor) -> torch.Tensor:
             spec.num_experts_per_tok, pre_softmax=spec.moe_pre_softmax,
             norm_topk=spec.moe_norm_topk,
         )
+    if not _gated(spec):
+        return gelu_mlp(x, params["up_proj"], params["down_proj"],
+                        params.get("up_bias"), params.get("down_bias"),
+                        approximate=spec.mlp_type != "gelu")
     fn = gelu_tanh_mlp if spec.mlp_type == "gelu_tanh_gated" else silu_mlp
     return fn(x, params["gate_proj"], params["up_proj"], params["down_proj"])
 
@@ -166,20 +202,18 @@ def finish_layer(
     attn_out: torch.Tensor,  # [..., D] after o_proj
 ) -> torch.Tensor:
     """Residual + MLP tail of every attention route (JAX `_finish_layer`).
-    Llama: hidden + attn, then post-attention RMSNorm and the MLP. Gemma's
-    sandwich: the post-attention norm on the attention output before the
-    residual, the pre- and post-feedforward norms around the MLP."""
-    eps = spec.rms_norm_eps
+    Llama and Bloom: hidden + attn, then the post-attention norm and the
+    MLP. Gemma's sandwich: the post-attention norm on the attention output
+    before the residual, the pre- and post-feedforward norms around the
+    MLP."""
     if spec.sandwich_norms:
-        hidden = hidden + rms_norm(
-            attn_out, params["post_attention_layernorm"], eps
-        )
-        x = rms_norm(hidden, params["pre_feedforward_layernorm"], eps)
-        return hidden + rms_norm(
-            mlp(params, spec, x), params["post_feedforward_layernorm"], eps
-        )
+        hidden = hidden + norm(attn_out, params, "post_attention_layernorm",
+                               spec)
+        x = norm(hidden, params, "pre_feedforward_layernorm", spec)
+        return hidden + norm(mlp(params, spec, x), params,
+                             "post_feedforward_layernorm", spec)
     hidden = hidden + attn_out
-    x = rms_norm(hidden, params["post_attention_layernorm"], eps)
+    x = norm(hidden, params, "post_attention_layernorm", spec)
     return hidden + mlp(params, spec, x)
 
 
@@ -256,7 +290,7 @@ def params_from_jax(tree, dtype=None, device="cuda") -> list[dict]:
     list of per-layer dicts of tensors. Same [in, out] layout: a copy of
     every key, the family extras (`{q,k,v}_bias`, `q_norm`/`k_norm`, the
     Gemma norms, an MoE layer's router and stacked experts, `[L, E, ...]`
-    when stacked) included."""
+    when stacked) and Bloom's norm and projection biases included."""
     device = resolve_device(device)
 
     def conv(x):

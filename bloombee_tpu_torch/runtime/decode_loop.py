@@ -76,11 +76,13 @@ def decode_loop_impl(
     rows = b if rows is None else rows
     d = spec.hidden_size
     ids, finished = ids0.long(), finished0.bool()
+    has_embed_norm = "embed_norm" in client_params
     tokens = []
     for plan in plans:
         h = torch.zeros((b, 1, d), dtype=compute_dtype, device=ids.device)
         h[:rows] = embed_impl(
-            client_params, ids[:rows, None], spec.embedding_multiplier
+            client_params, ids[:rows, None], spec.embedding_multiplier,
+            has_embed_norm, spec.rms_norm_eps,
         ).to(compute_dtype)
         h = span_step(
             params, arena_k, arena_v, h, plan.write, plan.page_table,
@@ -90,7 +92,7 @@ def decode_loop_impl(
         )
         logits = norm_head_impl(
             client_params, h[:, -1:].float(), spec.rms_norm_eps,
-            spec.logits_soft_cap,
+            spec.logits_soft_cap, spec.norm_type,
         )[:, 0]  # [B, V] f32
         nxt = logits.argmax(dim=-1)
         if eos_id >= 0:

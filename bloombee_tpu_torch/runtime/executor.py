@@ -19,8 +19,8 @@ another route.
 The CUDA kernels take fewer shapes than the Pallas ones (head_dim 64 or
 128, H/Hkv in {1, 2, 4, 8}, f32 or bf16: `supports` beside each wrapper's
 constants). A step outside that domain, or of a spec with an attention
-logit soft-cap (Gemma2; no kernel has one, in either package), takes the
-dense route, on the CPU as on the card: the route is a function of the
+logit soft-cap (Gemma2) or ALiBi (Bloom; no kernel has either, in either
+package), takes the dense route, on the CPU as on the card: the route is a function of the
 spec, the dtype and the buckets alone, decided before any launch.
 
 The thresholds are the JAX package's TPU-derived defaults; the port's own
@@ -124,13 +124,14 @@ class SpanExecutor:
         self.page_size = manager.page_size
         self.paged_min_context = env.get("BBTPU_PAGED_MIN_CONTEXT")
         # the CUDA kernels' shape domain: outside it every route is dense.
-        # The kernels have no logit soft-cap, so a soft-capped spec (Gemma2)
-        # stays dense inside the domain too, as the JAX gates keep it
+        # The kernels have no logit soft-cap and no ALiBi bias, so a
+        # soft-capped (Gemma2) or ALiBi (Bloom) spec stays dense inside the
+        # domain too, as the JAX gates keep it
         geometry = (
             spec.num_attention_heads, spec.num_key_value_heads,
             spec.head_dim, compute_dtype,
         )
-        kernels_ok = not spec.attn_logit_softcap
+        kernels_ok = not spec.attn_logit_softcap and not spec.alibi
         self.paged_supported = kernels_ok and cuda_paged.supports(*geometry)
         self.flash_supported = kernels_ok and cuda_flash.supports(*geometry)
 

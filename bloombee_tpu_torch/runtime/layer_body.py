@@ -1,17 +1,19 @@
 """Transformer layer body of the paged span step for the families the
-port serves: Llama, Mistral, Qwen2, Qwen3, Gemma2, Gemma3, Mixtral and
-Qwen3-MoE (port of bloombee_tpu/runtime/layer_body.py).
+port serves: Llama, Mistral, Qwen2, Qwen3, Gemma2, Gemma3, Mixtral,
+Qwen3-MoE and Bloom (port of bloombee_tpu/runtime/layer_body.py).
 
-RMSNorm, the projections (with Qwen2's q/k/v biases where the layer has
-them), the per-head q/k RMSNorm (Qwen3, Gemma3, Qwen3-MoE), rotary, the
-K/V scatter into the paged arena, attention (Gemma2's logit soft-cap on
+The input norm (RMSNorm, or Bloom's LayerNorm with its bias:
+`models.llama.block.norm`), the projections (with Qwen2's q/k/v biases and
+Bloom's biases where the layer has them), the per-head q/k RMSNorm (Qwen3,
+Gemma3, Qwen3-MoE), rotary (none under ALiBi), the K/V scatter into the
+paged arena, attention (Gemma2's logit soft-cap and Bloom's ALiBi bias on
 the dense routes) and the tail (`models.llama.block.finish_layer`: the
-Llama residual or Gemma's sandwich norms; the SiLU, tanh-GELU or
-mixture-of-experts MLP, the same on every attention route). Sliding
-windows (Mistral, Gemma) arrive per layer from the executor, and so do
-the rotary tables (Gemma3's sliding layers use a local base). Attention
-routes three ways, as in the JAX package, on flags the executor sets per
-step:
+Llama residual or Gemma's sandwich norms; the SiLU, tanh-GELU, plain 4h
+GELU or mixture-of-experts MLP, the same on every attention route).
+Sliding windows (Mistral, Gemma) arrive per layer from the executor, and
+so do the rotary tables (Gemma3's sliding layers use a local base).
+Attention routes three ways, as in the JAX package, on flags the executor
+sets per step:
 
 - `use_paged`: the paged kernels read K/V straight off the arena (decode for
   T=1, the int4 decode kernel over a quantized arena, chunk for T>1
@@ -30,13 +32,13 @@ row's experts.
 no arena (`models.llama.block.block_forward`; the speculative drafter's
 path).
 
-The kernels have no soft-cap: a soft-capped spec stays on the dense
-routes (the executor's gates, as in the JAX package), and a kernel route
-asked for one raises. The other families' structure (LayerNorm, ALiBi,
-the parallel residual, heterogeneous layers, shared K=V), LoRA and top-k
-sparse attention are left out; the executor and the drafter refuse specs
-that need them (`unsupported`, `dense_unsupported`), naming ROADMAP
-Queue 1.
+The kernels have no soft-cap and no position bias: a soft-capped or ALiBi
+spec stays on the dense routes (the executor's gates, as in the JAX
+package), and a kernel route asked for one raises. The other families'
+structure (the parallel residual, heterogeneous layers, shared K=V), LoRA
+and top-k sparse attention are left out; the executor and the drafter
+refuse specs that need them (`unsupported`, `dense_unsupported`), naming
+ROADMAP Queue 1.
 """
 
 from __future__ import annotations
@@ -49,10 +51,11 @@ from bloombee_tpu_torch.models.llama.block import (
     attention_inputs,
     block_forward,
     finish_layer,
+    norm,
     proj,
 )
 from bloombee_tpu_torch.models.spec import ModelSpec
-from bloombee_tpu_torch.ops import rms_norm
+from bloombee_tpu_torch.ops.alibi import slopes_on
 from bloombee_tpu_torch.ops.attention import NEG_INF, repeat_kv
 from bloombee_tpu_torch.ops.cuda.flash_attention import flash_attention
 from bloombee_tpu_torch.ops.cuda.paged_attention import (
@@ -78,10 +81,28 @@ def soft_cap(spec: ModelSpec, logits: torch.Tensor) -> torch.Tensor:
     return torch.tanh(logits / c) * c if c else logits
 
 
+def position_bias(spec: ModelSpec, logits: torch.Tensor,
+                  key_pos: torch.Tensor) -> torch.Tensor:
+    """Bloom's ALiBi bias `slopes[h] * key_pos` in f32, added to the f32
+    logits (head axis 1) before the mask, at the absolute key positions
+    (the JAX form); identity without ALiBi. `key_pos` broadcasts to the
+    logits' axes after the head axis."""
+    if not spec.alibi:
+        return logits
+    slopes = slopes_on(spec.num_attention_heads, logits.device)
+    shape = (1, -1) + (1,) * (logits.dim() - 2)
+    return logits + slopes.view(shape) * key_pos.float()
+
+
 def _kernel_route_check(spec: ModelSpec) -> None:
     if spec.attn_logit_softcap:
         raise ValueError(
             "the attention kernels have no logit soft-cap: a soft-capped "
+            "spec takes the dense routes"
+        )
+    if spec.alibi:
+        raise ValueError(
+            "the attention kernels have no ALiBi position bias: an ALiBi "
             "spec takes the dense routes"
         )
 
@@ -120,7 +141,8 @@ def attend_paged(
     k_r = repeat_kv(k_ctx, n_rep)
     v_r = repeat_kv(v_ctx, n_rep)
     logits = torch.einsum("bthd,bshd->bhts", q, k_r).float() * attn_scale(spec)
-    logits = soft_cap(spec, logits).masked_fill(~mask[:, None], NEG_INF)
+    logits = position_bias(spec, soft_cap(spec, logits), key_pos[:, :, None])
+    logits = logits.masked_fill(~mask[:, None], NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bhts,bshd->bthd", probs, v_r)
 
@@ -130,7 +152,8 @@ def unsupported(spec: ModelSpec) -> str | None:
     that ports it; None when it can (Llama-structured blocks, with or
     without q/k/v biases, q/k norms and sliding windows; Gemma's sandwich
     norms, tanh-GELU MLP, attention soft-cap and per-layer rope theta; the
-    mixture-of-experts MLP)."""
+    mixture-of-experts MLP; Bloom's LayerNorm, biases, plain GELU MLP and
+    ALiBi)."""
     reason = _unported_structure(spec)
     return None if reason is None else (
         f"{reason} (ROADMAP Queue 1 item 15)"
@@ -140,14 +163,12 @@ def unsupported(spec: ModelSpec) -> str | None:
 def _unported_structure(spec: ModelSpec) -> str | None:
     if spec.heterogeneous:
         return "heterogeneous head_dim layers"
-    if spec.norm_type != "rms" or spec.mlp_type not in (
-        "silu", "gelu_tanh_gated"
+    if spec.norm_type not in ("rms", "ln") or spec.mlp_type not in (
+        "silu", "gelu_tanh_gated", "gelu_tanh", "gelu"
     ):
         return f"{spec.norm_type} norm / {spec.mlp_type} MLP"
     if spec.k_eq_v_full:
         return "shared K=V projections"
-    if spec.alibi:
-        return "ALiBi"
     if spec.parallel_attn:
         return "parallel residual"
     return None
@@ -222,7 +243,7 @@ def layer_body(
     )
     if use_paged or use_flash:
         _kernel_route_check(spec)
-    x = rms_norm(hidden, params["input_layernorm"], spec.rms_norm_eps)
+    x = norm(hidden, params, "input_layernorm", spec)
     q, k, v = attention_inputs(params, spec, x, cos, sin)
 
     arena_write(
@@ -305,7 +326,8 @@ def attend_ragged(
     k_r = repeat_kv(k_ctx, n_rep)  # [B, S, H, hd]
     v_r = repeat_kv(v_ctx, n_rep)
     logits = torch.einsum("rhd,bshd->rhbs", q, k_r).float() * attn_scale(spec)
-    logits = soft_cap(spec, logits).masked_fill(~mask[:, None], NEG_INF)
+    logits = position_bias(spec, soft_cap(spec, logits), key_pos)
+    logits = logits.masked_fill(~mask[:, None], NEG_INF)
     probs = torch.softmax(logits.reshape(r, h, b * s), dim=-1).to(q.dtype)
     return torch.einsum("rhs,shd->rhd", probs, v_r.reshape(b * s, h, hd))
 
@@ -331,7 +353,8 @@ def layer_body_ragged(
 ) -> torch.Tensor:
     """layer_body for the ragged step: projections, rotary and the arena
     write are position-wise; attention gets the member structure from
-    (q_seq, q_positions) per row."""
+    (q_seq, q_positions) per row (and ALiBi its key positions from the
+    gathered context, as in `layer_body`)."""
     _, r, _ = hidden.shape
     h_heads, kv_heads, hd = (
         spec.num_attention_heads,
@@ -340,7 +363,7 @@ def layer_body_ragged(
     )
     if use_kernel:
         _kernel_route_check(spec)
-    x = rms_norm(hidden, params["input_layernorm"], spec.rms_norm_eps)
+    x = norm(hidden, params, "input_layernorm", spec)
     q, k, v = attention_inputs(params, spec, x, cos, sin)
 
     arena_write(

@@ -2287,7 +2287,9 @@ class BlockServer:
         the stepped loop feeds the span what the per-step path feeds it."""
         ids_t = torch.as_tensor(np.asarray(ids, dtype=np.int64))[:, None]
         h = embed_impl(self._client_params, ids_t.to(self.device),
-                       self.spec.embedding_multiplier).float()
+                       self.spec.embedding_multiplier,
+                       "embed_norm" in self._client_params,
+                       self.spec.rms_norm_eps).float()
         return h.to(self._wire_torch_dtype)
 
     def _select_head(self, out_dev) -> np.ndarray:
@@ -2297,7 +2299,7 @@ class BlockServer:
         out = out_dev.to(self._wire_torch_dtype).float()
         logits = norm_head_impl(
             self._client_params, out[:, -1:], self.spec.rms_norm_eps,
-            self.spec.logits_soft_cap,
+            self.spec.logits_soft_cap, self.spec.norm_type,
         )[:, 0]
         return logits.argmax(dim=-1).cpu().numpy().astype(np.int64)
 

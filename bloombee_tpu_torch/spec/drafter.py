@@ -79,12 +79,13 @@ class LocalDraftModel:
         return embed_impl(
             self.client,
             torch.as_tensor(ids, dtype=torch.int64).to(self.device),
-            self.spec.embedding_multiplier,
+            self.spec.embedding_multiplier, "embed_norm" in self.client,
+            self.spec.rms_norm_eps,
         )
 
     def _head(self, h_last: torch.Tensor) -> torch.Tensor:
         return norm_head_impl(self.client, h_last, self.spec.rms_norm_eps,
-                              self.spec.logits_soft_cap)
+                              self.spec.logits_soft_cap, self.spec.norm_type)
 
     def _rotary(self, positions: torch.Tensor):
         return rotary_cos_sin(positions, self.spec.head_dim,

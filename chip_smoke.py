@@ -253,6 +253,32 @@ Phases:
    Prints the byte reckoning, each run's time to first token, per-token
    medians and peak allocated memory, the phase's seconds, and the
    card's name and power limit.
+13. The Bloom family through the port's registry (published configs,
+   random bf16 weights: LayerNorms and projections with biases, the
+   embedding LayerNorm, a tied head), port BlockServers and the port
+   client, after the earlier phases' weights are freed; ALiBi keeps every
+   attention step dense (no kernel has the bias, as in the JAX package),
+   so no path launches any kernel; launch counts reset and read around
+   each run's sessions (paths "bloom7b", "bloom7b_dn", "bloom176",
+   "bloom176_mixed"):
+   (a) bloom-7b1 at published width and all 30 layers, [0, 15) +
+       [15, 30), `max_batch=1`: 2 sessions of 32 tokens from 1000-token
+       prompts and a 24-token follow-up with 2 more; tokens identical to
+       the solo executor, held teacher-forced against an f32 truth; then
+       the same sessions with `server_decode=True` on one [0, 30) server
+       (the fused decode loop with the embedding LayerNorm and the
+       LayerNorm head): tokens identical to the per-step run;
+   (b) BLOOM-176B at published width (112 heads), 2 layers, written as a
+       `bloom` checkpoint in the hub's layout (fused per-head QKV):
+       servers built from the directory, the client from
+       `from_pretrained` with the chunked head; run 1 as (a), tokens
+       identical to a solo executor over the checkpoint, held against an
+       f32 truth; run 2 with `mixed_batch=True`, `prefill_chunk=32`,
+       `max_batch=8` and a third, late session (ALiBi on the dense ragged
+       route), held teacher-forced.
+   Prints the byte reckoning, each run's time to first token, per-token
+   medians and peak allocated memory, the phase's seconds, and the
+   card's name and power limit.
 
 Prints the card's name and power limit, per-phase results, a
 `{"kernels": [...]}` line, and as its last line
@@ -1300,6 +1326,13 @@ def llama3_8b(layers: int):
 
 
 def random_model(spec, dtype, seed):
+    """Random layers (`init_block_params`: unit norms, the family's
+    extras) and client parameters from one seeded generator on the card:
+    an N(0, 1) embedding and an N(0, 1/D) head or, for a tied spec, an
+    N(0, 1/D) embedding whose transpose is the head (a view, no second
+    copy), so tied logits are unit-scale too; a LayerNorm spec (Bloom)
+    also gets the embedding LayerNorm and both LayerNorms' biases of
+    standard deviation 0.1."""
     import torch
 
     from bloombee_tpu_torch.models.llama.block import init_block_params
@@ -1310,15 +1343,25 @@ def random_model(spec, dtype, seed):
         for _ in range(spec.num_hidden_layers)
     ]
     d, vocab = spec.hidden_size, spec.vocab_size
+    embed = torch.randn((vocab, d), generator=gen, device="cuda")
+    if spec.tie_word_embeddings:
+        embed = embed * d**-0.5
     client = {
-        "embed": torch.randn(
-            (vocab, d), generator=gen, device="cuda"
-        ).to(dtype),
+        "embed": embed.to(dtype),
         "norm": torch.ones((d,), device="cuda", dtype=dtype),
-        "lm_head": (
-            torch.randn((d, vocab), generator=gen, device="cuda") * d**-0.5
-        ).to(dtype),
     }
+    del embed
+    if spec.tie_word_embeddings:
+        client["lm_head"] = client["embed"].t()
+    else:
+        client["lm_head"] = (
+            torch.randn((d, vocab), generator=gen, device="cuda") * d**-0.5
+        ).to(dtype)
+    if spec.norm_type == "ln":
+        client["embed_norm"] = torch.ones_like(client["norm"])
+        for name in ("embed_norm_bias", "norm_bias"):
+            client[name] = (torch.randn((d,), generator=gen, device="cuda")
+                            * 0.1).to(dtype)
     return layers, client, gen
 
 
@@ -1741,18 +1784,20 @@ def port_client(client, spec, reg_port, uid, **config):
 
 def tap(session, model, on_embed=None) -> dict:
     """Record, without changing them, what an open session's steps return
-    ("outs"), every reply meta its span streams receive ("metas": (span,
-    meta)) and when the model embeds ("embeds": host clock). generate
+    ("outs") and when each returned ("stepped": host clock), every reply
+    meta its span streams receive ("metas": (span, meta)) and when the
+    model embeds ("embeds": host clock). generate
     embeds the prompt first and then each token as soon as it is selected
     (the selection's copy to the host has synchronized the device), so the
     first gap is the time to the first token and later gaps are per-token
     times: step + head + embed. `on_embed(n)` runs after the n-th embed."""
-    rec = {"outs": [], "metas": [], "embeds": []}
+    rec = {"outs": [], "metas": [], "embeds": [], "stepped": []}
     step, embed = session.step, model.embed
 
     async def tapped_step(*args, **kwargs):
         out = await step(*args, **kwargs)
         rec["outs"].append(out)
+        rec["stepped"].append(time.perf_counter())
         return out
 
     def tapped_embed(ids):
@@ -3762,6 +3807,34 @@ HF_EXTRA_KEYS = {
 }
 
 
+def bloom_layer_tensors(layer: dict, i: int, n_head: int) -> dict:
+    """A port Bloom layer under the hub's BLOOM names (`h.{i}.*`, no
+    `transformer.` prefix): the q/k/v projections fused into
+    `self_attention.query_key_value` with its rows per head as [q, k, v]
+    (and its bias so), every other matrix transposed to [out, in]."""
+    import torch
+
+    p = f"h.{i}"
+    d = layer["q_proj"].shape[0]
+    hd = layer["q_proj"].shape[1] // n_head
+    out = {}
+    for ln in ("input_layernorm", "post_attention_layernorm"):
+        out[f"{p}.{ln}.weight"] = layer[ln]
+        out[f"{p}.{ln}.bias"] = layer[f"{ln}_bias"]
+    qkv = [layer[f"{x}_proj"].t().reshape(n_head, hd, d) for x in "qkv"]
+    out[f"{p}.self_attention.query_key_value.weight"] = torch.stack(
+        qkv, dim=1).reshape(3 * n_head * hd, d)
+    out[f"{p}.self_attention.query_key_value.bias"] = torch.stack(
+        [layer[f"{x}_bias"].reshape(n_head, hd) for x in "qkv"], dim=1
+    ).reshape(-1)
+    for key, hf in (("o", "self_attention.dense"),
+                    ("up", "mlp.dense_h_to_4h"),
+                    ("down", "mlp.dense_4h_to_h")):
+        out[f"{p}.{hf}.weight"] = layer[f"{key}_proj"].t()
+        out[f"{p}.{hf}.bias"] = layer[f"{key}_bias"]
+    return out
+
+
 def write_checkpoint(path: pathlib.Path, spec, seed: int,
                      config: dict | None = None) -> None:
     """A random checkpoint at `spec`'s width and depth in the HF layout
@@ -3771,7 +3844,9 @@ def write_checkpoint(path: pathlib.Path, spec, seed: int,
     `spec`); the layers carry the family's extras (`init_block_params`),
     an MoE spec's layers its router and each expert's matrices under the
     family's names (`Family.moe_keys`), and a tied spec writes no
-    lm_head."""
+    lm_head. A Bloom spec is written in the hub's BLOOM layout
+    (`bloom_layer_tensors`; `word_embeddings`, its LayerNorm and `ln_f`
+    with their biases, the N(0, 1/D) embedding tied to the head)."""
     import torch
     from safetensors.torch import save_file
 
@@ -3803,9 +3878,15 @@ def write_checkpoint(path: pathlib.Path, spec, seed: int,
                   str(path / name))
         weight_map.update({k: name for k in tensors})
 
+    bloom = spec.family == "bloom"
     for i in range(spec.num_hidden_layers):
         layer = init_block_params(gen, spec, dtype=torch.bfloat16,
                                   device="cuda")
+        if bloom:
+            save(bloom_layer_tensors(layer, i, spec.num_attention_heads),
+                 f"layer-{i:02d}.safetensors")
+            del layer
+            continue
         keys = HF_ATTENTION_KEYS if spec.num_experts else HF_BLOCK_KEYS
         tensors = {
             f"model.layers.{i}.{key}": (
@@ -3827,13 +3908,23 @@ def write_checkpoint(path: pathlib.Path, spec, seed: int,
                         if name in layer})
         save(tensors, f"layer-{i:02d}.safetensors")
         del layer, tensors
-    head = {
-        "model.embed_tokens.weight": torch.randn(
+    if bloom:
+        head = {"word_embeddings.weight": (torch.randn(
             (vocab, d), generator=gen, device="cuda"
-        ).to(torch.bfloat16),
-        "model.norm.weight": torch.ones((d,), dtype=torch.bfloat16,
-                                        device="cuda"),
-    }
+        ) * d**-0.5).to(torch.bfloat16)}
+        for norm in ("word_embeddings_layernorm", "ln_f"):
+            head[f"{norm}.weight"] = torch.ones((d,), dtype=torch.bfloat16,
+                                                device="cuda")
+            head[f"{norm}.bias"] = (torch.randn(
+                (d,), generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
+    else:
+        head = {
+            "model.embed_tokens.weight": torch.randn(
+                (vocab, d), generator=gen, device="cuda"
+            ).to(torch.bfloat16),
+            "model.norm.weight": torch.ones((d,), dtype=torch.bfloat16,
+                                            device="cuda"),
+        }
     if not spec.tie_word_embeddings:
         head["lm_head.weight"] = (
             torch.randn((vocab, d), generator=gen, device="cuda") * d**-0.5
@@ -4187,36 +4278,54 @@ FAMILY_CONFIGS = {
         "max_position_embeddings": 32768, "sliding_window": None,
         "tie_word_embeddings": False, "torch_dtype": "bfloat16",
     },
+    "bloom-7b1": {  # bigscience/bloom-7b1
+        "model_type": "bloom", "architectures": ["BloomForCausalLM"],
+        "hidden_size": 4096, "n_head": 32, "n_layer": 30,
+        "vocab_size": 250880, "layer_norm_epsilon": 1e-5,
+        "apply_residual_connection_post_layernorm": False,
+        "torch_dtype": "bfloat16",
+    },
+    "bloom": {  # bigscience/bloom (BLOOM-176B)
+        "model_type": "bloom", "architectures": ["BloomForCausalLM"],
+        "hidden_size": 14336, "n_head": 112, "n_layer": 70,
+        "vocab_size": 250880, "layer_norm_epsilon": 1e-5,
+        "apply_residual_connection_post_layernorm": False,
+        "torch_dtype": "bfloat16",
+    },
 }
 
 
 def family_config(name: str, layers: int) -> tuple[dict, object]:
     """A published config cut to `layers` (a nested `text_config` too, and
-    its `layer_types`) and the port registry's spec of it."""
+    its `layer_types`; Bloom's `n_layer`) and the port registry's spec of
+    it."""
     from bloombee_tpu_torch.models.auto import spec_from_config_dict
 
     config = json.loads(json.dumps(FAMILY_CONFIGS[name]))
     text = config.get("text_config", config)
-    text["num_hidden_layers"] = layers
+    text["n_layer" if "n_layer" in text else "num_hidden_layers"] = layers
     if "layer_types" in text:
         text["layer_types"] = text["layer_types"][:layers]
     return config, spec_from_config_dict(config)
 
 
 def family_run(uid, spec, prompts, follows, n_new, server_kw, layers=None,
-               client=None, model_dir=None, late=False) -> dict:
+               client=None, model_dir=None, late=False, spans=None,
+               client_kw=None) -> dict:
     """A port registry and two port BlockServers (`max_batch=1` unless
     `server_kw` says otherwise, plus `server_kw`) over the halves of the
-    model, on a ServerLoop: over in-memory `layers`, or each built from
-    `model_dir`. The port client (over `client` or, given `model_dir`,
-    `from_pretrained`) opens one session per prompt; the sessions
-    concurrently `generate` n_new tokens, then (unless `follows` is None) a
-    follow-up turn with 2 more; with `late`, the last session sends its
-    prompt once each of the others has decoded 8 tokens. Launch counts are
-    reset just before the sessions step and read just after. Returns the
-    tokens, each session's last-position outputs, time to first token,
-    per-token median, the launches and both servers' rpc_info and
-    layers."""
+    model (or over `spans`), on a ServerLoop: over in-memory `layers`, or
+    each built from `model_dir`. The port client (over `client` or, given
+    `model_dir`, `from_pretrained`; `client_kw`: more ClientConfig fields)
+    opens one session per prompt; the sessions concurrently `generate`
+    n_new tokens, then (unless `follows` is None) a follow-up turn with 2
+    more; with `late`, the last session sends its prompt once each of the
+    others has decoded 8 tokens. Launch counts are reset just before the
+    sessions step and read just after. Returns the tokens, each session's
+    last-position outputs, time to first token, per-token median (with
+    `server_decode`, whose tokens the client never embeds: the first
+    generate's time after the prefill step over n_new - 1), the launches
+    and the servers' rpc_info and layers."""
     import torch
 
     from bloombee_tpu_torch.client import (
@@ -4227,23 +4336,33 @@ def family_run(uid, spec, prompts, follows, n_new, server_kw, layers=None,
     from bloombee_tpu_torch.swarm.registry import RegistryClient
 
     n = spec.num_hidden_layers
-    spans = ((0, n // 2), (n // 2, n))
+    spans = spans or ((0, n // 2), (n // 2, n))
     max_len = prompts.shape[1] + n_new + (0 if follows is None else 32)
+    client_kw = client_kw or {}
+    ends = [None] * len(prompts)
+    loaded = {}
 
     def model_for(reg_port):
-        if model_dir is None:
-            return port_client(client, spec, reg_port, uid)
-        return DistributedModelForCausalLM.from_pretrained(
+        # the first session's client loads the checkpoint's parameters;
+        # the others share its tensors (one embedding on the card, not one
+        # a session)
+        if model_dir is None or loaded:
+            return port_client(loaded.get("params", client), spec, reg_port,
+                               uid, **client_kw)
+        model = DistributedModelForCausalLM.from_pretrained(
             str(model_dir), RegistryClient("127.0.0.1", reg_port),
             model_uid=uid, device="cuda",
-            config=ClientConfig(use_push=True),
+            config=ClientConfig(use_push=True, **client_kw),
         )
+        loaded["params"] = model.params
+        return model
 
     async def one(model, session, i, start=None):
         if start is not None:
             await start
         ids = await model.generate(prompts[i : i + 1], max_new_tokens=n_new,
                                    session=session)
+        ends[i] = time.perf_counter()
         toks = [ids[0, -n_new:]]
         if follows is not None:
             more = await model.generate(follows[i : i + 1], max_new_tokens=2,
@@ -4289,15 +4408,19 @@ def family_run(uid, spec, prompts, follows, n_new, server_kw, layers=None,
         def gaps(ts):
             return [(b - a) * 1e3 for a, b in zip(ts, ts[1:])]
 
+        if client_kw.get("server_decode"):
+            ttft = [(r["stepped"][0] - r["embeds"][0]) * 1e3 for r in recs]
+            per_token = [(end - r["stepped"][0]) * 1e3 / (n_new - 1)
+                         for r, end in zip(recs, ends)]
+        else:
+            ttft = [gaps(r["embeds"][:2])[0] for r in recs]
+            per_token = [sorted(gaps(r["embeds"][1:n_new]))[(n_new - 2) // 2]
+                         for r in recs]
         return {
             "tokens": tokens, "launches": launches, "wall_s": wall_s,
             "lasts": [torch.cat([o[:, -1] for o in r["outs"]]).float()
                       for r in recs],
-            "ttft_ms": [gaps(r["embeds"][:2])[0] for r in recs],
-            "per_token_ms_median": [
-                sorted(gaps(r["embeds"][1:n_new]))[(n_new - 2) // 2]
-                for r in recs
-            ],
+            "ttft_ms": ttft, "per_token_ms_median": per_token,
         }
 
     with ReplayWatch() as watch, ServerLoop() as servers_loop:
@@ -4560,14 +4683,15 @@ def session_inputs(gen, vocab: int, n: int, prompt_len: int):
             torch.randint(0, vocab, (n, 24), generator=gen, device="cuda"))
 
 
-def mixed_check(by_path, failures, path, run, spec, held) -> None:
+def mixed_check(by_path, failures, path, run, spec, held,
+                dense=False) -> None:
     """`family_check` of a mixed run (`mixed_batch`, `prefill_chunk`,
     BBTPU_PAGED_MIN_CONTEXT=0, a late session): the launches its servers'
     counters imply, each server's layers x its ragged dispatches
     (ragged), its decode dispatches (decode), and its prefill chunks run
-    alone plus each session's 24-token follow-up (chunk), no flash;
-    held teacher-forced; some chunk mixed with decodes and no ragged
-    decline."""
+    alone plus each session's 24-token follow-up (chunk), no flash (with
+    `dense`, a spec off every kernel: none at all); held teacher-forced;
+    some chunk mixed with decodes and no ragged decline."""
     infos = run["infos"]
 
     def per_server(**signs):
@@ -4577,44 +4701,22 @@ def mixed_check(by_path, failures, path, run, spec, held) -> None:
 
     say(f"[{path}] batching "
         + json.dumps([{k: i[k] for k in BATCH_KEYS} for i in infos]))
-    family_check(
-        by_path, failures, path, run, spec, None,
-        {**dict.fromkeys(KERNELS, 0),
-         "paged_ragged_attention": per_server(ragged_group_dispatches=1),
-         "paged_decode_attention": per_server(batch_dispatches=1,
-                                              batch_solo_steps=1),
-         "paged_chunk_attention": per_server(prefill_chunks=1,
-                                             mixed_dispatches=-1)
-         + sum(run["server_layers"]) * len(run["tokens"])},
-        held, identical=False,
-    )
+    want = dict.fromkeys(KERNELS, 0)
+    if not dense:
+        want.update({
+            "paged_ragged_attention": per_server(ragged_group_dispatches=1),
+            "paged_decode_attention": per_server(batch_dispatches=1,
+                                                 batch_solo_steps=1),
+            "paged_chunk_attention": per_server(prefill_chunks=1,
+                                                mixed_dispatches=-1)
+            + sum(run["server_layers"]) * len(run["tokens"]),
+        })
+    family_check(by_path, failures, path, run, spec, None, want, held,
+                 identical=False)
     if not sum(i["mixed_dispatches"] for i in infos):
         failures.append(f"{path}: no chunk mixed with decodes")
     if any(i["ragged_declines"] for i in infos):
         failures.append(f"{path}: ragged declines")
-
-
-def tied_model(spec, seed: int):
-    """Random bf16 layers (`init_block_params`: unit norms, Gemma's
-    sandwich and q/k norms among them) and client parameters with a tied
-    head: `lm_head` is the N(0, 1/D) embedding's transpose (a view, no
-    second copy), so the sqrt(D) embedding multiplier gives unit-scale
-    hidden states and unit-scale logits."""
-    import torch
-
-    from bloombee_tpu_torch.models.llama.block import init_block_params
-
-    bf16 = torch.bfloat16
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    layers = [init_block_params(gen, spec, dtype=bf16, device="cuda")
-              for _ in range(spec.num_hidden_layers)]
-    d = spec.hidden_size
-    embed = (torch.randn((spec.vocab_size, d), generator=gen, device="cuda")
-             * d**-0.5).to(bf16)
-    client = {"embed": embed,
-              "norm": torch.ones((d,), device="cuda", dtype=bf16),
-              "lm_head": embed.t()}
-    return layers, client, gen
 
 
 def phase_gemma() -> dict:
@@ -4671,7 +4773,7 @@ def phase_gemma() -> dict:
 
     # (a) Gemma-2-27B, 8 layers: every route dense
     _, spec = family_config("gemma-2-27b", 8)
-    layers, client, gen = tied_model(spec, seed=47)
+    layers, client, gen = random_model(spec, torch.bfloat16, seed=47)
     torch.cuda.synchronize()
     say(f"[gemma2] Gemma-2-27B bf16, {spec.num_hidden_layers} layers, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
@@ -4689,7 +4791,7 @@ def phase_gemma() -> dict:
 
     # (b) Gemma-3-27B, 12 layers: sliding layers on the paged kernels
     _, spec = family_config("gemma-3-27b", 12)
-    layers, client, gen = tied_model(spec, seed=53)
+    layers, client, gen = random_model(spec, torch.bfloat16, seed=53)
     torch.cuda.synchronize()
     say(f"[gemma3] Gemma-3-27B bf16, {spec.num_hidden_layers} layers, "
         f"windows {[spec.window_for_layer(i) for i in range(12)]}, "
@@ -5039,6 +5141,188 @@ def phase_moe() -> dict:
         raise AssertionError("moe runs failed: " + "; ".join(failures))
     return by_path
 
+# ------------------------------------------------------------- phase 13
+def bloom_bytes(spec) -> dict:
+    """The byte reckoning of a Bloom spec in bf16: a layer (12 D^2
+    weights and 13 D biases and LayerNorm parameters), the whole model's
+    layers, the embedding (the head is its view), the KV a token across
+    the layers and one 1024-page arena of half the layers (GB, KB)."""
+    d, n = spec.hidden_size, spec.num_hidden_layers
+    layer = (12 * d * d + 13 * d) * 2
+    kv_token = 2 * spec.num_key_value_heads * spec.head_dim * 2
+    return {
+        "layer_gb": layer / 1e9,
+        "layers_gb": n * layer / 1e9,
+        "embed_and_head_gb": spec.vocab_size * d * 2 / 1e9,
+        "kv_kb_a_token": n * kv_token / 1e3,
+        "arena_gb_a_half_span": 1024 * PS * (n // 2) * kv_token / 1e9,
+    }
+
+
+def phase_bloom() -> dict:
+    """Phase 13: the Bloom family through the port's registry (published
+    configs, random bf16 weights: LayerNorms with biases, every projection
+    biased, the embedding LayerNorm, a tied head), each run served by port
+    BlockServers and the port client, launch counts reset and read around
+    each run's sessions (paths "bloom7b", "bloom7b_dn", "bloom176",
+    "bloom176_mixed"). ALiBi keeps every attention step on the dense
+    routes (no kernel has the bias, as in the JAX package), so every path
+    launches no kernel at all.
+
+    (a) bloom-7b1 at published width and all 30 layers (32 heads of 128,
+        vocab 250880), [0, 15) + [15, 30), `max_batch=1`: 2 sessions of 32
+        tokens from 1000-token prompts and a 24-token follow-up with 2
+        more. Tokens identical to the sessions solo on one executor, held
+        teacher-forced against an f32 truth. Then the same sessions with
+        `server_decode=True` on one [0, 30) server given the client's
+        parameters (the fused decode loop: the embedding LayerNorm and the
+        LayerNorm head on the server): tokens identical to the per-step
+        run, every decode_n call fused.
+    (b) BLOOM-176B at published width (112 heads of 128: 64 slopes of the
+        power of two and 48 of the extension), 2 layers, written as a
+        `bloom` checkpoint in the hub's layout (`h.{i}.*`, the fused
+        per-head QKV): servers built from the directory over [0, 1) +
+        [1, 2), the client from `from_pretrained` with `use_chunked_head`
+        (the unchunked head would upcast a 14.4 GB f32 copy of the tied
+        head); run 1 as (a), tokens identical to an in-process solo
+        executor over the checkpoint, held teacher-forced against an f32
+        truth; run 2 with `mixed_batch=True`, `prefill_chunk=32`,
+        `max_batch=8`, a 20 ms gather window, the wire uncompressed
+        (BBTPU_WIRE_COMPRESSION=0) and a third session sent once the two
+        have decoded 8 tokens, so ALiBi runs on the dense ragged route:
+        chunks mixed with decodes, held teacher-forced.
+
+    Prints the byte reckoning, each run's time to first token, per-token
+    medians and peak allocated memory, the phase's seconds, and the card's
+    name and power limit; returns the launches by path."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    from bloombee_tpu_torch.client import DistributedModelForCausalLM
+    from bloombee_tpu_torch.models.checkpoint import (
+        load_client_params,
+        load_span_params,
+    )
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"[bloom] {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"allocated before the phase")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    by_path, failures = {}, []
+    n_new, sessions = 32, 2
+    zeros = dict.fromkeys(KERNELS, 0)
+
+    def bytes_line(path, spec):
+        say(f"[{path}] bytes " + json.dumps(
+            {k: round(v, 4) for k, v in bloom_bytes(spec).items()}
+        ))
+
+    # (a) bloom-7b1, all 30 layers
+    _, spec = family_config("bloom-7b1", 30)
+    bytes_line("bloom7b", spec)
+    layers, client, gen = random_model(spec, torch.bfloat16, seed=79)
+    torch.cuda.synchronize()
+    say(f"[bloom7b] bloom-7b1 bf16, {spec.num_hidden_layers} layers, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    prompts, follows = session_inputs(gen, spec.vocab_size, sessions, 1000)
+    local = DistributedModelForCausalLM(spec, client, None, device="cuda")
+    reset_peak()
+    run = family_run("bloom-7b1", spec, prompts, follows, n_new, {},
+                     layers=layers, client=client)
+    say_peak("bloom7b")
+    solo = served_reference(layers, spec, local, prompts, follows, n_new)[0]
+    family_check(by_path, failures, "bloom7b", run, spec,
+                 [t for _, t in solo], zeros,
+                 family_teacher_forced(layers, spec, local, prompts,
+                                       follows, run, n_new))
+    del solo
+    reset_peak()
+    dn = family_run(
+        "bloom-7b1-dn", spec, prompts, follows, n_new,
+        {"client_params": client}, layers=layers, client=client,
+        spans=((0, spec.num_hidden_layers),),
+        client_kw={"server_decode": True, "server_decode_chunk": 32},
+    )
+    say_peak("bloom7b_dn")
+    family_check(by_path, failures, "bloom7b_dn", dn, spec, run["tokens"],
+                 zeros)
+    info = dn["infos"][0]
+    say(f"[bloom7b_dn] decode_n calls {info['decode_n_calls']}, fused "
+        f"{info['decode_n_fused_calls']}, steps {info['decode_n_steps']}")
+    if not info["decode_n_fused_calls"] == info["decode_n_calls"] > 0:
+        failures.append("bloom7b_dn: not every decode_n call fused")
+    del layers, client, local, run, dn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) BLOOM-176B, 2 layers, from a checkpoint
+    config, spec = family_config("bloom", 2)
+    bytes_line("bloom176", spec)
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="bbtpu-bloom176-"))
+    try:
+        t0 = time.perf_counter()
+        write_checkpoint(tmp, spec, seed=83, config=config)
+        say(f"[bloom176] checkpoint written in "
+            f"{time.perf_counter() - t0:.2f} s")
+        chunked = {"use_chunked_head": True}
+        gen = torch.Generator(device="cuda").manual_seed(89)
+        prompts, follows = session_inputs(gen, spec.vocab_size, 3, 1000)
+        reset_peak()
+        run = family_run("bloom-176b", spec, prompts[:sessions],
+                         follows[:sessions], n_new, {}, model_dir=tmp,
+                         client_kw=chunked)
+        say_peak("bloom176")
+        layers, _ = load_span_params(str(tmp), 0, spec.num_hidden_layers,
+                                     dtype=torch.bfloat16, device="cuda")
+        local = DistributedModelForCausalLM(
+            spec, load_client_params(str(tmp), device="cuda"), None,
+            device="cuda",
+        )
+        local.config.use_chunked_head = True
+        solo = served_reference(layers, spec, local, prompts[:sessions],
+                                follows[:sessions], n_new)[0]
+        family_check(by_path, failures, "bloom176", run, spec,
+                     [t for _, t in solo], zeros,
+                     family_teacher_forced(layers, spec, local,
+                                           prompts[:sessions],
+                                           follows[:sessions], run, n_new))
+        del run, solo
+
+        # the late prompt's 28.7 MB of hidden states take seconds through
+        # zlib on each hop (run 1's first token): uncompressed, its chunks
+        # reach the servers while the others still decode
+        chunk = 32
+        reset_peak()
+        with env_set("BBTPU_BATCH_WINDOW_MS", "20"), \
+                env_set("BBTPU_WIRE_COMPRESSION", "0"):
+            run = family_run(
+                "bloom-176b-mixed", spec, prompts, follows, n_new,
+                {"max_batch": 8, "mixed_batch": True,
+                 "prefill_chunk": chunk},
+                model_dir=tmp, late=True, client_kw=chunked,
+            )
+            say_peak("bloom176_mixed")
+            held = family_teacher_forced(layers, spec, local, prompts,
+                                         follows, run, n_new, chunk=chunk)
+        mixed_check(by_path, failures, "bloom176_mixed", run, spec, held,
+                    dense=True)
+        del layers, local, run
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    say(f"[bloom] phase took {time.perf_counter() - t_phase:.1f} s")
+    say(card_line())
+    if failures:
+        raise AssertionError("bloom runs failed: " + "; ".join(failures))
+    return by_path
+
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -5081,6 +5365,7 @@ def main() -> int:
         by_path.update(phase_families())
         by_path.update(phase_gemma())
         by_path.update(phase_moe())
+        by_path.update(phase_bloom())
     except Exception:
         traceback.print_exc()
         return 1

@@ -256,9 +256,9 @@ def layers():
 def test_layer_body_serves_gemma():
     for case in LAYER_SPECS:
         assert t_body.unsupported(specs(case)[1]) is None
-    bloom = dataclasses.replace(specs("gemma2")[1], family="bloom",
-                                alibi=True, norm_type="ln")
-    assert t_body.unsupported(bloom).endswith("(ROADMAP Queue 1 item 15)")
+    falcon = dataclasses.replace(specs("gemma2")[1], family="falcon",
+                                 parallel_attn=True, norm_type="ln")
+    assert t_body.unsupported(falcon).endswith("(ROADMAP Queue 1 item 15)")
 
 
 def test_init_block_params_makes_the_gemma_norms():

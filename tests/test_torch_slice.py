@@ -246,5 +246,6 @@ def test_layers_subspan_and_guards_match_jax():
     with pytest.raises(ValueError, match="does not cover"):
         SpanExecutor(
             params_from_jax(params, device="cpu"),
-            ModelSpec(**SPEC, alibi=True), port.manager, device="cpu",
+            ModelSpec(**SPEC, parallel_attn=True), port.manager,
+            device="cpu",
         )
