@@ -4,7 +4,7 @@ Keyed by the HF `model_type`: each family maps a config to a ModelSpec and
 loads one layer's parameters from a checkpoint (and, where its names or
 conventions differ from Llama's, the client's embeddings, final norm and
 head). The port serves llama, mistral, qwen2, qwen3, gemma2, gemma3,
-gemma3_text, mixtral, qwen3_moe and bloom. Every other family the JAX
+gemma3_text, mixtral, qwen3_moe, bloom and falcon. Every other family the JAX
 package serves raises NotImplementedError naming what it needs
 (`UNPORTED`, ROADMAP Queue 1 item 15); a model_type neither package knows
 raises KeyError.
@@ -22,8 +22,6 @@ _REGISTRY: dict[str, "Family"] = {}
 # model_type -> what the port lacks to serve it
 UNPORTED = {
     "gemma4": "heterogeneous attention layers (runtime/hetero.py)",
-    "falcon": "the parallel attention residual and its fused multi-query "
-    "QKV",
 }
 
 
@@ -32,9 +30,10 @@ class Family:
     `loader(reader, layer_idx, dtype=, device=) -> dict` and, where the
     client's parameters are not under the Llama names as they are
     (`checkpoint.load_client_params`), a `client_loader(reader, dtype=,
-    device=) -> {"embed", "norm", "lm_head"}` (Bloom's adds
-    "embed_norm", "embed_norm_bias" and "norm_bias"). An MoE family also names
-    its MLP's HF keys, `moe_keys` (`checkpoint.load_moe_block`)."""
+    device=) -> {"embed", "norm", "lm_head", *client_extras}`
+    (`client_extras`: Bloom's "embed_norm", "embed_norm_bias" and
+    "norm_bias"; Falcon's "norm_bias"). An MoE family also names its
+    MLP's HF keys, `moe_keys` (`checkpoint.load_moe_block`)."""
 
     def __init__(
         self,
@@ -43,12 +42,14 @@ class Family:
         loader: Callable,
         client_loader: Callable | None = None,
         moe_keys: tuple | None = None,
+        client_extras: tuple[str, ...] = (),
     ):
         self.name = name
         self._spec_fn = spec_fn
         self._loader = loader
         self.client_loader = client_loader
         self.moe_keys = moe_keys
+        self.client_extras = client_extras
 
     def spec_from_config_dict(self, config: dict) -> ModelSpec:
         return self._spec_fn(SimpleNamespace(**config))
@@ -93,6 +94,7 @@ def _register_builtins() -> None:
     register_family(Family("llama", llama_spec_from_hf, load_hf_block))
     # side-effect registrations
     import bloombee_tpu_torch.models.bloom  # noqa: F401
+    import bloombee_tpu_torch.models.falcon  # noqa: F401
     import bloombee_tpu_torch.models.gemma2  # noqa: F401
     import bloombee_tpu_torch.models.mistral  # noqa: F401
     import bloombee_tpu_torch.models.mixtral  # noqa: F401

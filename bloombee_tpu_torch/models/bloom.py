@@ -96,5 +96,6 @@ def _load_client(reader, dtype=None, device="cuda") -> dict:
 
 register_family(
     Family("bloom", bloom_spec_from_hf, _load_block,
-           client_loader=_load_client)
+           client_loader=_load_client,
+           client_extras=("embed_norm", "embed_norm_bias", "norm_bias"))
 )

@@ -1,7 +1,7 @@
 """HF checkpoint reading for the port (port of
 bloombee_tpu/models/checkpoint.py), for every family of the registry
 (`models.auto`: Llama, Mistral, Qwen2, Qwen3, Gemma2, Gemma3, Mixtral,
-Qwen3-MoE, Bloom).
+Qwen3-MoE, Bloom, Falcon).
 
 A server loads only its span's layers; a client loads only the embeddings,
 the final norm and the LM head. Model directories are local paths

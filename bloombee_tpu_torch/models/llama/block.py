@@ -4,13 +4,16 @@ serves: Mistral (the same block), Qwen2 (biased q/k/v projections), Qwen3
 (per-head q/k RMSNorm before rotary), Gemma2/Gemma3 (sandwich norms
 around attention and the gated tanh-GELU MLP, q/k norms on Gemma3),
 Mixtral/Qwen3-MoE (the mixture-of-experts MLP, `ops.moe`, in place of the
-dense one) and Bloom (LayerNorm with biases, every projection biased, no
+dense one), Bloom (LayerNorm with biases, every projection biased, no
 rotary: its ALiBi bias lives in the attention routes, and the plain 4h
-tanh-GELU MLP). The family extras are optional parameter keys,
-`{q,k,v,o,up,down}_bias`, `{norm}_bias` and `q_norm`/`k_norm`, applied
-where present, and spec switches (`norm_type`, `alibi`, `sandwich_norms`,
-`mlp_type`, `num_experts`), as the JAX package's family-generic layer
-body applies them. An MoE layer holds `router` [D, E], `experts_gate`/
+tanh-GELU MLP) and Falcon (LayerNorm with biases, the parallel residual:
+attention and the plain 4h exact-GELU MLP both read the layer's input,
+through one norm or, with `mlp_layernorm`, two). The family extras are
+optional parameter keys, `{q,k,v,o,up,down}_bias`, `{norm}_bias` and
+`q_norm`/`k_norm`, applied where present, and spec switches
+(`norm_type`, `alibi`, `sandwich_norms`, `parallel_attn`, `mlp_type`,
+`num_experts`), as the JAX package's family-generic layer body applies
+them. An MoE layer holds `router` [D, E], `experts_gate`/
 `experts_up` [E, D, I] and `experts_down` [E, I, D] instead of
 `gate_proj`/`up_proj`/`down_proj`; a plain-MLP layer has no `gate_proj`.
 
@@ -55,7 +58,10 @@ def init_block_params(
     `qk_norm` spec unit q/k norms, a `sandwich_norms` spec unit pre- and
     post-feedforward norms and a LayerNorm spec biases of standard
     deviation 0.1 on both norms and every projection, made after the
-    Llama keys so a Llama spec's draws stay as they were."""
+    Llama keys so a Llama spec's draws stay as they were. A parallel
+    (Falcon) spec has no post-attention norm and bias-free projections:
+    of the biases it draws the input LayerNorm's, and with two norms
+    `mlp_layernorm` (unit) and its bias last."""
     device = resolve_device(device)
     d, i = spec.hidden_size, spec.intermediate_size
     h, kv, hd = spec.num_attention_heads, spec.num_key_value_heads, spec.head_dim
@@ -96,7 +102,14 @@ def init_block_params(
         for name in ("pre_feedforward_layernorm",
                      "post_feedforward_layernorm"):
             params[name] = torch.ones((d,), dtype=dtype, device=device)
-    if spec.norm_type == "ln":
+    if spec.parallel_attn:  # Falcon: bias-free projections
+        del params["post_attention_layernorm"]
+        params["input_layernorm_bias"] = w((d,), 0.1)
+        if spec.num_ln_in_parallel_attn == 2:
+            params["mlp_layernorm"] = torch.ones((d,), dtype=dtype,
+                                                 device=device)
+            params["mlp_layernorm_bias"] = w((d,), 0.1)
+    elif spec.norm_type == "ln":
         for name, n in (("input_layernorm_bias", d),
                         ("post_attention_layernorm_bias", d),
                         ("q_bias", h * hd), ("k_bias", kv * hd),
@@ -172,7 +185,7 @@ def block_forward(
     attn_out, aux = attend(q, k, v)
 
     attn_out = proj(attn_out.reshape(b, t, -1), params, "o_proj")
-    return finish_layer(params, spec, hidden, attn_out), aux
+    return finish_layer(params, spec, hidden, x, attn_out), aux
 
 
 def mlp(params: dict, spec: ModelSpec, x: torch.Tensor) -> torch.Tensor:
@@ -199,13 +212,20 @@ def finish_layer(
     params: dict,
     spec: ModelSpec,
     hidden: torch.Tensor,  # [..., D] the layer's input
+    x: torch.Tensor,  # [..., D] the attention input's norm of it
     attn_out: torch.Tensor,  # [..., D] after o_proj
 ) -> torch.Tensor:
     """Residual + MLP tail of every attention route (JAX `_finish_layer`).
     Llama and Bloom: hidden + attn, then the post-attention norm and the
     MLP. Gemma's sandwich: the post-attention norm on the attention output
     before the residual, the pre- and post-feedforward norms around the
-    MLP."""
+    MLP. Falcon's parallel residual: hidden + attn + the MLP of `x` (one
+    norm, Falcon-7B) or of the layer's `mlp_layernorm` (two, Falcon-40B
+    and 180B)."""
+    if spec.parallel_attn:
+        if spec.num_ln_in_parallel_attn == 2:
+            x = norm(hidden, params, "mlp_layernorm", spec)
+        return hidden + attn_out + mlp(params, spec, x)
     if spec.sandwich_norms:
         hidden = hidden + norm(attn_out, params, "post_attention_layernorm",
                                spec)

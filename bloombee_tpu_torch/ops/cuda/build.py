@@ -33,6 +33,8 @@ NVCC_FLAGS = (
     "-O3",
     "-std=c++17",
     "-gencode=arch=compute_90a,code=sm_90a",
+    # each source's kernel instantiations optimized on every core
+    "--split-compile=0",
     "-shared",
     "-Xcompiler",
     "-fPIC",

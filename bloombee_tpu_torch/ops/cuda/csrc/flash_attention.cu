@@ -430,13 +430,15 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
 
 // dtype: 0 = float32 (flash_f32_kernel), 1 = bfloat16 (flash_bf16_kernel,
 // which needs q, k and v 16-byte aligned). Returns 0, a cudaError_t code,
-// or -1 for a dtype/head_dim this library was not compiled for.
+// or -1 for a dtype/head_dim this library was not compiled for or H not a
+// multiple of HKV.
 extern "C" int bb_flash_attention(const void* q, const void* k,
                                   const void* v, void* o, const int* starts,
                                   const int* lens, int B, int TQ, int S,
                                   int H, int HKV, int HD, float scale,
                                   int causal, int dtype, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if (HKV <= 0 || H % HKV) return -1;  // any group g = H / HKV
   if (dtype == 0 && HD == 64)
     return launch_f32<64>(q, k, v, o, starts, lens, B, TQ, S, H, HKV,
                              scale, causal, st);

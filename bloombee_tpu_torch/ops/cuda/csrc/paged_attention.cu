@@ -17,9 +17,11 @@
 // and visible key). The design reads them so and fills the card at B=1:
 //
 // - Row tiles: each (sequence, KV head) has T * g query rows, cut into
-//   units of TR = 64 / g tokens (64 query rows: 16 tokens at g = 4). The
-//   layout is regular, so a CTA finds its (sequence, row tile) from
-//   blockIdx by arithmetic.
+//   units of TR = 64 / g tokens (64 query rows: 16 tokens at g = 4; 21
+//   tokens, 63 rows, at g = 3). A group wider than 64 is cut into head
+//   tiles of at most 64 heads (paged_rows.cuh's `HeadTile`) with units of
+//   one token. The layout is regular, so a CTA finds its (sequence, row
+//   tile, head tile) from blockIdx by arithmetic.
 // - Split over keys: each unit's keys (the union of its rows' visible
 //   ranges) are cut into `chunks` runs of whole pages, as even as pages
 //   allow, on the device from lens (`chunk_split` plans the count on the
@@ -55,7 +57,7 @@ using namespace bbsplit;
 namespace cg = cooperative_groups;
 
 // 32-bit words of tree mask a CTA keeps in shared memory (4 KB): the
-// tile's rows whole for T <= 32 * MASK_WORDS / (64 / g) (512 at g = 1)
+// tile's rows whole for T <= 32 * MASK_WORDS / TR (512 at g = 1)
 constexpr int MASK_WORDS = 1024;
 // the most chunks of a unit: one cluster, at most the portable size
 constexpr int MAX_CLUSTER = 8;
@@ -256,7 +258,7 @@ struct StageOf<__nv_bfloat16, HD> {
   static constexpr size_t smem = SwizzleStage<HD>::BYTES;
 };
 
-template <typename T, int HD, int G>
+template <typename T, int HD>
 __global__ void __launch_bounds__(SNT)
     chunk_kernel(const T* __restrict__ q,  // [B, TQ, H, HD]
                  typename StageOf<T, HD>::type st,
@@ -264,29 +266,31 @@ __global__ void __launch_bounds__(SNT)
                  const int* __restrict__ lens,        // [B]
                  const unsigned char* __restrict__ tree,  // [B,TQ,TQ]/null
                  T* __restrict__ out,  // [B, TQ, H, HD]
-                 int TQ, int HKV, int NP, int page_size, int window,
-                 int t_real, int tiles, float scale) {
-  constexpr int TR = QROWS / G;  // tokens of a row tile
+                 GroupTiles gr, int TQ, int H, int NP, int page_size,
+                 int window, int t_real, int tiles, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   st.bind(smem_raw);
   // per row of the tile: visible keys [lo, hi), in-step keys from ss on
-  __shared__ int r_lo[TR], r_hi[TR], r_ss[TR];
+  __shared__ int r_lo[QROWS], r_hi[QROWS], r_ss[QROWS];
   __shared__ unsigned tm[MASK_WORDS];  // tree mask bits [nrows][W]
 
-  // the cluster is the unit's C chunks: blockIdx.x = c
-  const int c = blockIdx.x, C = gridDim.x, kvh = blockIdx.y;
+  // the cluster is the unit's C chunks: blockIdx.x = c; blockIdx.y the
+  // head tile, blockIdx.z the (sequence, row tile)
+  const HeadTile ht(gr, blockIdx.y);
+  const int TR = gr.tr, w = ht.width();  // tokens of a row tile
+  const int c = blockIdx.x, C = gridDim.x;
   const int b = blockIdx.z / tiles, t0 = blockIdx.z % tiles * TR;
-  const int H = HKV * G, tid = threadIdx.x;
+  const int tid = threadIdx.x;
   const size_t i0 = (size_t)b * TQ + t0;
   auto out_row = [&](int qr) {
-    return out + ((i0 + qr / G) * H + kvh * G + qr % G) * HD;
+    return out + ((i0 + ht.row(qr)) * H + ht.h0 + ht.head(qr)) * HD;
   };
   // causal mode: the tile's rows past t_real are padding, exact zeros
   // written by chunk 0 and left out of the unit
   const int nrows =
       max(min(TR, (tree != nullptr ? TQ : min(TQ, t_real)) - t0), 0);
   if (c == 0)
-    for (int i = nrows * G * HD + tid; i < min(TR, TQ - t0) * G * HD;
+    for (int i = nrows * w * HD + tid; i < min(TR, TQ - t0) * w * HD;
          i += SNT)
       out_row(i / HD)[i % HD] = from_f<T>(0.f);
   const int len = lens[b], start = len - t_real;
@@ -330,10 +334,9 @@ __global__ void __launch_bounds__(SNT)
   float* acc_s = reinterpret_cast<float*>(smem_raw);
   float2* ml_s = reinterpret_cast<float2*>(acc_s + QROWS * HD);
   typename StageOf<T, HD>::body body(st, smem_raw, scale);
-  if (!attend_unit<T, HD, G>(
-          q + (i0 * H + kvh * G) * HD, H, st, body,
-          page_table + (size_t)b * NP, page_size, kvh, nrows, r_lo, r_hi,
-          r_ss,
+  if (!attend_unit<T, HD>(
+          q + (i0 * H + ht.h0) * HD, H, ht, st, body,
+          page_table + (size_t)b * NP, page_size, nrows, r_lo, r_hi, r_ss,
           [&](int r, int m) {  // the m-th in-step key: the tree row decides
             if (m >= TQ) return false;
             if (packed) return ((tm[r * W + m / 32] >> (m % 32)) & 1u) != 0;
@@ -344,20 +347,20 @@ __global__ void __launch_bounds__(SNT)
           },
           c == 0, acc_s, ml_s, out_row))
     return;  // the whole cluster: no row sees a key
-  cluster_merge<T, HD>(acc_s, ml_s, nrows * G, out_row);
+  cluster_merge<T, HD>(acc_s, ml_s, nrows * w, out_row);
 }
 
-template <typename T, int HD, int G>
+template <typename T, int HD>
 struct ChunkLaunch {
   static int run(const void* q, const void* k, const void* v, const int* pt,
                  const int* lens, const unsigned char* tree, void* out, int B,
-                 int TQ, int HKV, int NP, int page_size, int window,
+                 int TQ, int H, int HKV, int NP, int page_size, int window,
                  int t_real, int chunks, float scale, cudaStream_t stream) {
     using S = typename StageOf<T, HD>::type;
     static_assert(QROWS * (HD * sizeof(float) + sizeof(float2)) <=
                       S::BYTES,
                   "a chunk's state fits in the ring");
-    auto kernel = chunk_kernel<T, HD, G>;
+    auto kernel = chunk_kernel<T, HD>;
     const size_t smem = StageOf<T, HD>::smem;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -370,9 +373,11 @@ struct ChunkLaunch {
     st.k = (const T*)k;
     st.v = (const T*)v;
     st.hkv = HKV;
-    const int tiles = (TQ + QROWS / G - 1) / (QROWS / G);
+    // row tiles of tr tokens for nt head tiles of gt heads per KV head
+    const GroupTiles gr(H, HKV);
+    const int tiles = (TQ + gr.tr - 1) / gr.tr;
     cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(chunks, HKV, B * tiles);
+    cfg.gridDim = dim3(chunks, HKV * gr.nt, B * tiles);
     cfg.blockDim = dim3(SNT);
     cfg.dynamicSmemBytes = smem;
     cfg.stream = stream;
@@ -384,8 +389,8 @@ struct ChunkLaunch {
     cfg.attrs = cluster;
     cfg.numAttrs = 1;
     err = cudaLaunchKernelEx(&cfg, kernel, (const T*)q, st, pt, lens, tree,
-                             (T*)out, TQ, HKV, NP, page_size, window, t_real,
-                             tiles, scale);
+                             (T*)out, gr, TQ, H, NP, page_size, window,
+                             t_real, tiles, scale);
     if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
   }
@@ -397,8 +402,8 @@ struct ChunkLaunch {
 // (causal mode) or [B, TQ, TQ] u8. `chunks` (1 to MAX_CLUSTER, from the
 // host planner `chunk_split`) is the CTAs per unit and the cluster size.
 // The slabs and q must be 16-byte aligned. Returns 0, a cudaError_t code,
-// or -1 for a plan out of range or a dtype / head_dim / group size this
-// library was not compiled for.
+// or -1 for a plan out of range, a dtype / head_dim this library was not
+// compiled for, or H not a multiple of HKV.
 extern "C" int bb_paged_chunk_attention(
     const void* q, const void* k_slab, const void* v_slab,
     const int* page_table, const int* lens, const unsigned char* tree,
@@ -408,7 +413,7 @@ extern "C" int bb_paged_chunk_attention(
   if (B == 0 || TQ == 0) return 0;
   if (chunks < 1 || chunks > MAX_CLUSTER) return -1;
   return bbpaged::dispatch<ChunkLaunch>(
-      dtype, HD, H / HKV, q, k_slab, v_slab, page_table, lens, tree, out, B,
-      TQ, HKV, NP, page_size, window, t_real, chunks, scale,
+      dtype, HD, H, HKV, q, k_slab, v_slab, page_table, lens, tree, out, B,
+      TQ, H, HKV, NP, page_size, window, t_real, chunks, scale,
       (cudaStream_t)stream);
 }

@@ -1,5 +1,5 @@
 // Device code that every paged source uses: the dtype conversions and the
-// dtype / head_dim / group dispatch of the C entry points.
+// dtype / head_dim dispatch of the C entry points.
 
 #pragma once
 
@@ -22,28 +22,17 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// Launch L<T, HD, G>::run(args...) for a runtime dtype (0 = float32,
-// 1 = bfloat16), head_dim (64, 128) and group size G = H / HKV (1, 2, 4,
-// 8); -1 for a combination that is not compiled in.
-template <template <typename, int, int> class L, typename T, int HD,
-          typename... A>
-int by_group(int g, A... a) {
-  switch (g) {
-    case 1: return L<T, HD, 1>::run(a...);
-    case 2: return L<T, HD, 2>::run(a...);
-    case 4: return L<T, HD, 4>::run(a...);
-    case 8: return L<T, HD, 8>::run(a...);
-    default: return -1;
-  }
-}
-
-template <template <typename, int, int> class L, typename... A>
-int dispatch(int dtype, int hd, int g, A... a) {
-  if (dtype == 0 && hd == 64) return by_group<L, float, 64>(g, a...);
-  if (dtype == 0 && hd == 128) return by_group<L, float, 128>(g, a...);
-  if (dtype == 1 && hd == 64) return by_group<L, __nv_bfloat16, 64>(g, a...);
-  if (dtype == 1 && hd == 128)
-    return by_group<L, __nv_bfloat16, 128>(g, a...);
+// Launch L<T, HD>::run(args...) for a runtime dtype (0 = float32,
+// 1 = bfloat16) and head_dim (64, 128); -1 for a combination that is not
+// compiled in or H not a multiple of HKV. Every kernel takes the group
+// g = H / HKV at run time.
+template <template <typename, int> class L, typename... A>
+int dispatch(int dtype, int hd, int h, int hkv, A... a) {
+  if (hkv <= 0 || h <= 0 || h % hkv) return -1;
+  if (dtype == 0 && hd == 64) return L<float, 64>::run(a...);
+  if (dtype == 0 && hd == 128) return L<float, 128>::run(a...);
+  if (dtype == 1 && hd == 64) return L<__nv_bfloat16, 64>::run(a...);
+  if (dtype == 1 && hd == 128) return L<__nv_bfloat16, 128>::run(a...);
   return -1;
 }
 

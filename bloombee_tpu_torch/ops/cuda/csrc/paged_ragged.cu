@@ -18,10 +18,13 @@
 // per grid step for Mosaic); none of that is carried over. The design:
 //
 // - The rows are cut into segments: a segment starts at every multiple of
-//   TR = 64 / g rows (64 query rows of one KV head) and wherever the owning
-//   sequence changes, so it holds at most TR rows of one sequence. Each
-//   sequence's key range [0, NP*page_size) is cut into `chunks` page-aligned
-//   chunks. One CTA of 4 warps per (chunk, KV head, segment): the grid's
+//   TR = 64 / g rows (at most 64 query rows of one KV head) and wherever
+//   the owning sequence changes, so it holds at most TR rows of one
+//   sequence. A group wider than 64 is cut into head tiles
+//   (paged_rows.cuh's `HeadTile`: Falcon-7B's 71 heads as 36 + 35) with
+//   segments of one row. Each sequence's key range [0, NP*page_size) is
+//   cut into `chunks` page-aligned chunks. One CTA of 4 warps per (chunk,
+//   head tile, segment): the grid's
 //   segment axis is sized on the host from the shapes alone (`ragged_split`:
 //   ceil(R / TR) row tiles plus one per sequence, which bounds the segments
 //   when each sequence's rows are contiguous and the padding rows come last,
@@ -37,8 +40,8 @@
 //   with cp.async, bf16 on the tensor cores (`MmaBody` below: mma.sync
 //   m16n8k16, 1, 2 or 4 warps per 16 query rows, P as hi + lo bf16
 //   terms), f32 on the CUDA cores (`CoreBody`), the chunks merged by the last
-//   CTA of each (segment, KV head) in the same launch, counted by one
-//   counter per first row of a segment and KV head. A segment of padding
+//   CTA of each (segment, head tile) in the same launch, counted by one
+//   counter per first row of a segment and head tile. A segment of padding
 //   rows or of a lens 0 sequence reads nothing: exact zeros, no merge.
 
 #include <type_traits>
@@ -356,7 +359,7 @@ struct MmaBody {
   }
 };
 
-template <typename T, int HD, int G>
+template <typename T, int HD>
 __global__ void __launch_bounds__(SNT)
     ragged_kernel(const T* __restrict__ q,  // [R, H, HD]
                   DenseStage<T, HD> st,
@@ -368,10 +371,10 @@ __global__ void __launch_bounds__(SNT)
                   const int* __restrict__ tree_rows,   // [R, t_max] or null
                   T* __restrict__ out,                 // [R, H, HD]
                   float* __restrict__ part,            // chunk states
-                  int* __restrict__ counter,           // [R * HKV], zero
-                  int R, int B, int HKV, int NP, int page_size, int window,
-                  int t_max, int chunk, float scale) {
-  constexpr int TR = QROWS / G;  // the most rows of a segment
+                  int* __restrict__ counter,  // [R * HKV * nt], zero
+                  GroupTiles gr, int R, int B, int H, int HKV, int NP,
+                  int page_size, int window, int t_max, int chunk,
+                  float scale) {
   // bf16 on the tensor cores, f32 on the CUDA cores
   using Body =
       std::conditional_t<sizeof(T) == 2, MmaBody<HD>, CoreBody<T, HD>>;
@@ -380,12 +383,14 @@ __global__ void __launch_bounds__(SNT)
   Body body(st, smem_raw, scale);
   // per row of the segment: visible keys [lo, hi), in-step keys from ss
   // on (tree mode)
-  __shared__ int r_lo[TR], r_hi[TR], r_ss[TR];
+  __shared__ int r_lo[QROWS], r_hi[QROWS], r_ss[QROWS];
   __shared__ int seg[2], counts[SNT / 32];
   __shared__ float total[QROWS];  // the merge's per-row sums
 
-  const int c = blockIdx.x, kvh = blockIdx.y;
-  const int H = HKV * G;
+  // blockIdx.y: the head tile (HeadTile), w query heads of a row
+  const HeadTile ht(gr, blockIdx.y);
+  const int TR = gr.tr, w = ht.width(), g = gr.g;
+  const int c = blockIdx.x, kvh = ht.kvh;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int cap = NP * page_size;
 
@@ -449,58 +454,61 @@ __global__ void __launch_bounds__(SNT)
     }
     __syncthreads();
 
-    // part: acc [HKV, C, R * G, HD] then (m, l) [HKV, C, R * G]; the
-    // unit's rows start at query row i0 * G
+    // part: acc [HKV, C, R * g, HD] then (m, l) [HKV, C, R * g]; the
+    // unit's query rows are contiguous there from row i0 * g + ht.off (a
+    // head tile narrower than g has one-row segments)
     const int C = gridDim.x;
-    const size_t RQ = (size_t)R * G;
-    float* const acc_all =
-        part + (size_t)kvh * C * RQ * HD + (size_t)i0 * G * HD;
+    const size_t RQ = (size_t)R * g, u0 = (size_t)i0 * g + ht.off;
+    float* const acc_all = part + (size_t)kvh * C * RQ * HD + u0 * HD;
     float2* const ml_all = reinterpret_cast<float2*>(
-        part + (size_t)HKV * C * RQ * HD) + (size_t)kvh * C * RQ + i0 * G;
+        part + (size_t)HKV * C * RQ * HD) + (size_t)kvh * C * RQ + u0;
     auto out_row = [&](int qr) {
-      return out + ((size_t)(i0 + qr / G) * H + kvh * G + qr % G) * HD;
+      return out +
+             ((size_t)(i0 + ht.row(qr)) * H + ht.h0 + ht.head(qr)) * HD;
     };
-    const bool stored = attend_unit<T, HD, G>(
-        q + ((size_t)i0 * H + kvh * G) * HD, H, st, body,
-        page_table + (size_t)max(s, 0) * NP, page_size, kvh, nrows, r_lo,
-        r_hi, r_ss,
+    const bool stored = attend_unit<T, HD>(
+        q + ((size_t)i0 * H + ht.h0) * HD, H, ht, st, body,
+        page_table + (size_t)max(s, 0) * NP, page_size, nrows, r_lo, r_hi,
+        r_ss,
         [&](int r, int m) {  // the m-th in-step key: the tree row decides
           return m < t_max && tree_rows[(size_t)(i0 + r) * t_max + m] != 0;
         },
         [&](int, int) { return make_int2(c * chunk, (c + 1) * chunk); },
         c == 0, acc_all + (size_t)c * RQ * HD, ml_all + (size_t)c * RQ,
         out_row);
-    if (!stored || !arrive_last(counter + (size_t)i0 * HKV + kvh, C))
+    if (!stored ||
+        !arrive_last(counter + (size_t)i0 * gridDim.y + blockIdx.y, C))
       continue;
     // the ring's shared memory holds the 2 * nq * C chunk weights and sums
     // (nq <= QROWS, C <= MAX_CHUNKS)
-    merge_chunks<T, HD, QROWS>(acc_all, ml_all, C, (int)RQ, nrows * G,
+    merge_chunks<T, HD, QROWS>(acc_all, ml_all, C, (int)RQ, nrows * w,
                                reinterpret_cast<float*>(smem_raw), total,
                                out_row);
   }
 }
 
-template <typename T, int HD, int G>
+template <typename T, int HD>
 struct RaggedLaunch {
   static int run(const void* q, const void* k, const void* v, const int* pt,
                  const int* lens, const int* q_seq, const int* q_pos,
                  const int* nt, const int* tree_rows, void* out, float* part,
-                 int* counter, int R, int B, int HKV, int NP, int page_size,
-                 int window, int t_max, int chunk, int chunks, int segments,
-                 float scale, cudaStream_t stream) {
+                 int* counter, int R, int B, int H, int HKV, int NP,
+                 int page_size, int window, int t_max, int chunk, int chunks,
+                 int segments, float scale, cudaStream_t stream) {
     const size_t smem = rows_smem_bytes<T, HD>();
     cudaError_t err = cudaFuncSetAttribute(
-        ragged_kernel<T, HD, G>,
+        ragged_kernel<T, HD>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     DenseStage<T, HD> st{};
     st.k = (const T*)k;
     st.v = (const T*)v;
     st.hkv = HKV;
-    const dim3 grid(chunks, HKV, segments);
-    ragged_kernel<T, HD, G><<<grid, SNT, smem, stream>>>(
+    const GroupTiles gr(H, HKV);
+    const dim3 grid(chunks, HKV * gr.nt, segments);
+    ragged_kernel<T, HD><<<grid, SNT, smem, stream>>>(
         (const T*)q, st, pt, lens, q_seq, q_pos, nt, tree_rows, (T*)out,
-        part, counter, R, B, HKV, NP, page_size, window, t_max, chunk,
+        part, counter, gr, R, B, H, HKV, NP, page_size, window, t_max, chunk,
         scale);
     return (int)cudaGetLastError();
   }
@@ -513,11 +521,12 @@ struct RaggedLaunch {
 // (`ragged_split`): `chunk` keys (a multiple of page_size) in each of
 // `chunks` <= MAX_CHUNKS chunks, and `segments` CTAs along the grid's
 // segment axis (any number >= 1 is right; too few walks the rest one after
-// another). `part` holds HKV*chunks*R*g*(HD+2) floats and `counter` R*HKV
-// ints that are 0 before the launch and 0 after it. The slabs and q must
-// be 16-byte aligned. Returns 0, a cudaError_t code, or -1 for a plan out
-// of range or a dtype / head_dim / group size this library was not
-// compiled for.
+// another). `part` holds HKV*chunks*R*g*(HD+2) floats and `counter`
+// R*HKV*nt ints (nt: the head tiles of a KV head, `head_tile_count`) that
+// are 0 before the launch and 0 after it. The slabs and q must be 16-byte
+// aligned. Returns 0, a cudaError_t code, or -1 for a plan out of range, a
+// dtype / head_dim this library was not compiled for, or H not a multiple
+// of HKV.
 extern "C" int bb_paged_ragged_attention(
     const void* q, const void* k_slab, const void* v_slab,
     const int* page_table, const int* lens, const int* q_seq,
@@ -528,7 +537,7 @@ extern "C" int bb_paged_ragged_attention(
   if (R == 0) return 0;
   if (chunks < 1 || chunks > MAX_CHUNKS || segments < 1) return -1;
   return bbpaged::dispatch<RaggedLaunch>(
-      dtype, HD, H / HKV, q, k_slab, v_slab, page_table, lens, q_seq, q_pos,
-      nt, tree_rows, out, part, counter, R, B, HKV, NP, page_size, window,
+      dtype, HD, H, HKV, q, k_slab, v_slab, page_table, lens, q_seq, q_pos,
+      nt, tree_rows, out, part, counter, R, B, H, HKV, NP, page_size, window,
       t_max, chunk, chunks, segments, scale, (cudaStream_t)stream);
 }

@@ -25,21 +25,19 @@ from bloombee_tpu_torch.ops.cuda import build
 KERNEL = "flash_attention"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
-# GQA groups H/Hkv the kernel is held to on the card (the paged kernels'
-# groups, so one geometry takes all the routes or none)
-_GROUPS = (1, 2, 4, 8)
 _lib = None
 
 
 def supports(h: int, hkv: int, hd: int, dtype) -> bool:
     """Whether the kernel takes this head geometry and dtype: the domain
-    `_check` enforces at launch, and the gate the executor routes by."""
+    `_check` enforces at launch, and the gate the executor routes by. Any
+    GQA group H/Hkv, as the Pallas kernel (the paged kernels' domain too,
+    so one geometry takes all the routes or none)."""
     return (
         dtype in _DTYPES
         and hd in _HEAD_DIMS
         and hkv > 0
         and h % hkv == 0
-        and h // hkv in _GROUPS
     )
 
 
@@ -114,9 +112,9 @@ def _check(q, k, v, starts, lens):
         raise ValueError(f"{KERNEL}: head_dim {hd} not in {_HEAD_DIMS}")
     if k.dim() != 4 or k.shape[0] != b or k.shape[3] != hd or k.shape != v.shape:
         raise ValueError(f"{KERNEL}: k/v {tuple(k.shape)} vs q {tuple(q.shape)}")
-    if h % k.shape[2] or h // k.shape[2] not in _GROUPS:
+    if k.shape[2] == 0 or h % k.shape[2]:
         raise ValueError(
-            f"{KERNEL}: H/Hkv = {h}/{k.shape[2]} not in {_GROUPS}"
+            f"{KERNEL}: H = {h} is not a multiple of Hkv = {k.shape[2]}"
         )
     if k.shape[1] < t:
         raise ValueError(f"{KERNEL}: S={k.shape[1]} must be >= T={t}")

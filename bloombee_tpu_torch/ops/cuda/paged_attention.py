@@ -19,7 +19,8 @@ Replaces, in bloombee_tpu/ops/pallas/paged_attention.py:
   optional per-query window and treats query rows >= t_real as padding;
   tree mode keeps the committed prefix fully visible and lets a [T, T] tree
   mask govern the in-step keys. Its kernel cuts each sequence's rows into
-  tiles of RAGGED_ROWS // g tokens that share every staged K/V tile, and
+  tiles of RAGGED_ROWS // g tokens that share every staged K/V tile (a
+  group wider than RAGGED_ROWS into head tiles first: `head_tiles`), and
   each tile's keys into page-aligned chunks (`chunk_split`, `chunk_range`)
   merged within a thread block cluster.
 - `paged_ragged_attention`: R query rows spread unevenly over B sequences
@@ -35,8 +36,11 @@ Replaces, in bloombee_tpu/ops/pallas/paged_attention.py:
 
 All read keys only through the page table, keep the softmax and the P.V
 sum in f32 (as the Pallas kernels do), and output zeros for a row with no
-visible key. Each wrapper runs its plain version for tensors on the CPU and
-its kernel for CUDA tensors; it never falls back.
+visible key. Query head h reads KV head h // g for any group g = H / Hkv,
+as the Pallas kernels do: every kernel takes the group at run time, in
+head tiles (`decode_tiles`, `head_tiles`).
+Each wrapper runs its plain version for tensors on the CPU and its kernel
+for CUDA tensors; it never falls back.
 """
 
 from __future__ import annotations
@@ -58,7 +62,8 @@ CHUNK = "paged_chunk_attention"
 RAGGED = "paged_ragged_attention"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
-_GROUPS = (1, 2, 4, 8)
+# the decode kernels' widest head tile (DECODE_TILE in csrc/paged_decode.cu)
+DECODE_TILE = 16
 _libs: dict = {}
 # CTAs the split decode kernel aims for: two per SM of an H100's 132
 SPLIT_CTAS = 264
@@ -86,14 +91,35 @@ _counters: dict = {}
 def supports(h: int, hkv: int, hd: int, dtype) -> bool:
     """Whether the paged kernels (decode, int4 decode, chunk, ragged) take
     this head geometry and dtype: the domain `_check` enforces at launch,
-    and the gate the executor routes by."""
+    and the gate the executor routes by. Any GQA group H/Hkv, as the
+    Pallas kernels."""
     return (
         dtype in _DTYPES
         and hd in _HEAD_DIMS
         and hkv > 0
         and h % hkv == 0
-        and h // hkv in _GROUPS
     )
+
+
+def decode_tiles(group: int) -> tuple[int, int]:
+    """The decode kernels' head tiles of one KV head's `group` query heads:
+    (tiles, heads a tile): tiles of the least power of two >= group, at
+    most DECODE_TILE heads, the last one masked (a group of 3 is one tile
+    of 4; Falcon-7B's 71 five of 16). `decode_tile_width` and
+    `split_decode_kernel` in csrc/paged_decode.cu."""
+    width = min(1 << (group - 1).bit_length(), DECODE_TILE)
+    return -(-group // width), width
+
+
+def head_tiles(group: int) -> tuple[int, int]:
+    """The chunk and ragged kernels' head tiles of one KV head's `group`
+    query heads: (tiles, heads a tile): ceil(group / RAGGED_ROWS) tiles of
+    ceil(group / tiles) heads, the last one short (one tile for a group of
+    at most RAGGED_ROWS; Falcon-7B's 71 as 36 + 35). A unit's rows are
+    RAGGED_ROWS // (heads a tile) tokens. `head_tile_count` and
+    `head_tile_width` in csrc/paged_rows.cuh."""
+    tiles = -(-group // RAGGED_ROWS)
+    return tiles, -(-group // tiles)
 
 
 def _gather(slab, page_table, page_size):
@@ -343,8 +369,9 @@ def _check(kernel, q, k_slab, v_slab, page_table, lens, page_size, b=None):
         for name, x in leaves:
             if x.dtype != q.dtype:
                 raise ValueError(f"{kernel}: {name} must match q's dtype")
-    if h % hkv or h // hkv not in _GROUPS:
-        raise ValueError(f"{kernel}: H/Hkv = {h}/{hkv} not in {_GROUPS}")
+    if hkv == 0 or h % hkv:
+        raise ValueError(f"{kernel}: H = {h} is not a multiple of "
+                         f"Hkv = {hkv}")
     if s_tot % page_size:
         raise ValueError(f"{kernel}: arena slots % page_size {page_size}")
     if page_table.dim() != 2 or page_table.shape[0] != b:
@@ -371,16 +398,18 @@ def _stream(q) -> int:
 
 
 def decode_split(
-    num_pages: int, page_size: int, b: int, hkv: int
+    num_pages: int, page_size: int, b: int, hkv: int, group: int
 ) -> tuple[int, int]:
     """The split decode kernel's plan: (chunk_keys, chunks). Each sequence's
     key range [0, num_pages * page_size) is cut into `chunks` chunks of
     `chunk_keys` keys, a whole number of pages each (the last may run past
-    the range: the kernel clips it), enough that b * hkv * chunks CTAs fill
-    SPLIT_CTAS, and at most one chunk per page. A function of the shapes
-    alone: the host never reads lens from the device."""
+    the range: the kernel clips it), enough that the b * hkv * tiles *
+    chunks CTAs (`decode_tiles(group)`) fill SPLIT_CTAS, and at most one
+    chunk per page. A function of the shapes alone: the host never reads
+    lens from the device."""
     num_pages = max(num_pages, 1)
-    want = min(max(1, -(-SPLIT_CTAS // (b * hkv))), num_pages)
+    units = b * hkv * decode_tiles(group)[0]
+    want = min(max(1, -(-SPLIT_CTAS // units)), num_pages)
     pages = -(-num_pages // want)
     return pages * page_size, -(-num_pages // pages)
 
@@ -399,51 +428,56 @@ def _counter(device, stream, n: int) -> torch.Tensor:
 
 def decode_buffers(q, hkv, num_pages, page_size, stream):
     """(chunk_keys, chunks, part, counter) for one split decode launch of
-    grid (chunks, hkv, B): `part` (f32, one launch's chunk states, None
-    when chunks == 1) holds B*hkv*chunks*g*(hd+2) floats, allocated per
-    call; `counter` (int32, >= B*hkv, zero) is kept per (device, stream)
-    and grows when a launch needs more."""
+    grid (chunks, hkv * tiles, B), (tiles, width) = `decode_tiles(g)`:
+    `part` (f32, one launch's chunk states, None when chunks == 1) holds
+    B*hkv*tiles*chunks*width*(hd+2) floats, allocated per call; `counter`
+    (int32, >= B*hkv*tiles, zero) is kept per (device, stream) and grows
+    when a launch needs more."""
     b, h, hd = q.shape
-    chunk, chunks = decode_split(num_pages, page_size, b, hkv)
+    tiles, width = decode_tiles(h // hkv)
+    chunk, chunks = decode_split(num_pages, page_size, b, hkv, h // hkv)
     part = None
     if chunks > 1:
         part = torch.empty(
-            (b * hkv * chunks * (h // hkv) * (hd + 2),),
+            (b * hkv * tiles * chunks * width * (hd + 2),),
             dtype=torch.float32, device=q.device,
         )
-    return chunk, chunks, part, _counter(q.device, stream, b * hkv)
+    return chunk, chunks, part, _counter(q.device, stream, b * hkv * tiles)
 
 
 def ragged_split(
     num_pages: int, page_size: int, r: int, hkv: int, group: int, b: int
 ) -> tuple[int, int, int]:
     """The ragged kernel's plan: (chunk_keys, chunks, segments). The kernel
-    cuts the rows into segments of at most RAGGED_ROWS // group rows of one
-    sequence; `segments` = min(r, ceil(r / (RAGGED_ROWS // group)) + b),
-    its grid's segment axis, bounds how many the r rows of b sequences form
-    when each sequence's rows are contiguous and the padding rows come last
-    (more segments are walked by the grid's last CTAs, one after another).
-    The key range [0, num_pages * page_size) is cut into `chunks` chunks of
+    cuts the group into head tiles (`head_tiles`: (tiles, width)) and the
+    rows into segments of at most tr = RAGGED_ROWS // width rows of one
+    sequence; `segments` = min(r, ceil(r / tr) + b), its grid's segment
+    axis, bounds how many the r rows of b sequences form when each
+    sequence's rows are contiguous and the padding rows come last (more
+    segments are walked by the grid's last CTAs, one after another). The
+    key range [0, num_pages * page_size) is cut into `chunks` chunks of
     `chunk_keys` keys, a whole number of pages each (the last may run past
-    the range: the kernel clips it), enough that segments * hkv * chunks
-    CTAs fill RAGGED_CTAS, at most one chunk per page and at most
+    the range: the kernel clips it), enough that segments * hkv * tiles *
+    chunks CTAs fill RAGGED_CTAS, at most one chunk per page and at most
     RAGGED_MAX_CHUNKS. A function of the shapes alone: the host never
     reads lens, q_seq or q_pos."""
     r = max(r, 1)
-    segments = min(r, -(-r // (RAGGED_ROWS // group)) + b)
+    tiles, width = head_tiles(group)
+    segments = min(r, -(-r // (RAGGED_ROWS // width)) + b)
     num_pages = max(num_pages, 1)
-    want = min(max(1, -(-RAGGED_CTAS // (segments * hkv))), num_pages,
-               RAGGED_MAX_CHUNKS)
+    want = min(max(1, -(-RAGGED_CTAS // (segments * hkv * tiles))),
+               num_pages, RAGGED_MAX_CHUNKS)
     pages = -(-num_pages // want)
     return pages * page_size, -(-num_pages // pages), segments
 
 
 def ragged_buffers(q, hkv, page_table, page_size, stream):
     """(chunk_keys, chunks, segments, part, counter) for one ragged launch
-    of grid (chunks, hkv, segments): `part` (f32, allocated per call) holds
-    hkv*chunks*R*g*(hd+2) floats of chunk states; `counter` (int32, >=
-    R*hkv, one per first row of a segment and KV head, zero) comes from the
-    per-(device, stream) pool that the decode kernels use too."""
+    of grid (chunks, hkv * tiles, segments), tiles = `head_tiles(g)[0]`:
+    `part` (f32, allocated per call) holds hkv*chunks*R*g*(hd+2) floats of
+    chunk states; `counter` (int32, >= R*hkv*tiles, one per first row of a
+    segment and head tile, zero) comes from the per-(device, stream) pool
+    that the decode kernels use too."""
     r, h, hd = q.shape
     b, num_pages = page_table.shape
     chunk, chunks, segments = ragged_split(
@@ -453,23 +487,27 @@ def ragged_buffers(q, hkv, page_table, page_size, stream):
         (hkv * chunks * r * h // hkv * (hd + 2),),
         dtype=torch.float32, device=q.device,
     )
-    return chunk, chunks, segments, part, _counter(q.device, stream, r * hkv)
+    tiles = head_tiles(h // hkv)[0]
+    return (chunk, chunks, segments, part,
+            _counter(q.device, stream, r * hkv * tiles))
 
 
 def chunk_split(
     b: int, t: int, hkv: int, group: int, num_pages: int
 ) -> tuple[int, int]:
-    """The chunk kernel's plan: (chunks, tiles). Each sequence's t tokens
-    are cut into `tiles` row tiles of RAGGED_ROWS // group tokens (one unit
-    per row tile and KV head), each unit's keys into `chunks` runs of whole
-    pages (`chunk_range`, on the device): as many as keep the
-    b * tiles * hkv * chunks CTAs within CHUNK_CTAS (one wave), at least
-    one, at most CHUNK_CLUSTER (a unit's chunks are one thread block
+    """The chunk kernel's plan: (chunks, tiles). Each KV head's group is cut
+    into head tiles (`head_tiles`: (heads, width)), each sequence's t
+    tokens into `tiles` row tiles of RAGGED_ROWS // width tokens (one unit
+    per row tile and head tile), each unit's keys into `chunks` runs of
+    whole pages (`chunk_range`, on the device): as many as keep the
+    b * tiles * hkv * heads * chunks CTAs within CHUNK_CTAS (one wave), at
+    least one, at most CHUNK_CLUSTER (a unit's chunks are one thread block
     cluster) and at most one per page of the table. A function of the
     shapes alone: the host never reads lens."""
-    tiles = -(-max(t, 1) // (RAGGED_ROWS // group))
-    chunks = min(max(1, CHUNK_CTAS // (b * tiles * hkv)), CHUNK_CLUSTER,
-                 max(num_pages, 1))
+    heads, width = head_tiles(group)
+    tiles = -(-max(t, 1) // (RAGGED_ROWS // width))
+    chunks = min(max(1, CHUNK_CTAS // (b * tiles * hkv * heads)),
+                 CHUNK_CLUSTER, max(num_pages, 1))
     return chunks, tiles
 
 

@@ -17,8 +17,8 @@ kernels' plain versions run. A kernel failure raises: nothing retries on
 another route.
 
 The CUDA kernels take fewer shapes than the Pallas ones (head_dim 64 or
-128, H/Hkv in {1, 2, 4, 8}, f32 or bf16: `supports` beside each wrapper's
-constants). A step outside that domain, or of a spec with an attention
+128, f32 or bf16; any GQA group H/Hkv, as the Pallas kernels: `supports`
+beside each wrapper's constants). A step outside that domain, or of a spec with an attention
 logit soft-cap (Gemma2) or ALiBi (Bloom; no kernel has either, in either
 package), takes the dense route, on the CPU as on the card: the route is a function of the
 spec, the dtype and the buckets alone, decided before any launch.

@@ -1,6 +1,6 @@
 """Transformer layer body of the paged span step for the families the
 port serves: Llama, Mistral, Qwen2, Qwen3, Gemma2, Gemma3, Mixtral,
-Qwen3-MoE and Bloom (port of bloombee_tpu/runtime/layer_body.py).
+Qwen3-MoE, Bloom and Falcon (port of bloombee_tpu/runtime/layer_body.py).
 
 The input norm (RMSNorm, or Bloom's LayerNorm with its bias:
 `models.llama.block.norm`), the projections (with Qwen2's q/k/v biases and
@@ -8,8 +8,9 @@ Bloom's biases where the layer has them), the per-head q/k RMSNorm (Qwen3,
 Gemma3, Qwen3-MoE), rotary (none under ALiBi), the K/V scatter into the
 paged arena, attention (Gemma2's logit soft-cap and Bloom's ALiBi bias on
 the dense routes) and the tail (`models.llama.block.finish_layer`: the
-Llama residual or Gemma's sandwich norms; the SiLU, tanh-GELU, plain 4h
-GELU or mixture-of-experts MLP, the same on every attention route).
+Llama residual, Gemma's sandwich norms or Falcon's parallel residual; the
+SiLU, tanh-GELU, plain 4h GELU or mixture-of-experts MLP, the same on every
+attention route).
 Sliding windows (Mistral, Gemma) arrive per layer from the executor, and
 so do the rotary tables (Gemma3's sliding layers use a local base).
 Attention routes three ways, as in the JAX package, on flags the executor
@@ -35,7 +36,7 @@ path).
 The kernels have no soft-cap and no position bias: a soft-capped or ALiBi
 spec stays on the dense routes (the executor's gates, as in the JAX
 package), and a kernel route asked for one raises. The other families'
-structure (the parallel residual, heterogeneous layers, shared K=V), LoRA
+structure (heterogeneous layers, shared K=V), LoRA
 and top-k sparse attention are left out; the executor and the drafter
 refuse specs that need them (`unsupported`, `dense_unsupported`), naming
 ROADMAP Queue 1.
@@ -153,7 +154,7 @@ def unsupported(spec: ModelSpec) -> str | None:
     without q/k/v biases, q/k norms and sliding windows; Gemma's sandwich
     norms, tanh-GELU MLP, attention soft-cap and per-layer rope theta; the
     mixture-of-experts MLP; Bloom's LayerNorm, biases, plain GELU MLP and
-    ALiBi)."""
+    ALiBi; Falcon's parallel residual with one or two LayerNorms)."""
     reason = _unported_structure(spec)
     return None if reason is None else (
         f"{reason} (ROADMAP Queue 1 item 15)"
@@ -169,8 +170,6 @@ def _unported_structure(spec: ModelSpec) -> str | None:
         return f"{spec.norm_type} norm / {spec.mlp_type} MLP"
     if spec.k_eq_v_full:
         return "shared K=V projections"
-    if spec.parallel_attn:
-        return "parallel residual"
     return None
 
 
@@ -282,7 +281,7 @@ def layer_body(
                 window,
             )
     attn_out = proj(attn.reshape(b, t, h_heads * hd), params, "o_proj")
-    return finish_layer(params, spec, hidden, attn_out)
+    return finish_layer(params, spec, hidden, x, attn_out)
 
 
 def attend_ragged(
@@ -384,4 +383,4 @@ def layer_body_ragged(
             window, nt=nt, tree_rows=tree_rows,
         )
     attn_out = proj(attn.reshape(1, r, h_heads * hd), params, "o_proj")
-    return finish_layer(params, spec, hidden, attn_out)
+    return finish_layer(params, spec, hidden, x, attn_out)

@@ -17,17 +17,23 @@ Phases:
    every element, <= 1e-2 x |plain| + 1e-3; shapes include a
    sliding window, a lens=0 row, a tree-mode chunk, ragged causal and tree
    mixes with padding rows, and int4 decode, plus small cases of every
-   other compiled geometry (hd 64; GQA groups 1, 2, 8), and the edge cases
+   other compiled geometry (hd 64; GQA groups 1, 2, 8), the edge cases
    of the flash, split decode, int4 decode, ragged and chunk kernels
    (`phase_kernels_edges`; the split kernels' cases launched twice, equal
-   bit for bit). Times each kernel, its plain version and (flash) the
+   bit for bit), and every kernel at wide and odd groups
+   (`phase_kernels_groups`: Falcon-7B's 71 heads over one KV head,
+   Falcon-40B's 128 over 8, Falcon-180B's 232 over 8 at hd 64, and group
+   3 at hd 128; windows, lens=0 rows, a follow-up and a tree chunk, ragged
+   mixes and trees with padding rows, every paged case launched twice). Times each kernel, its plain version and (flash) the
    library call computing the same function, with CUDA events after
    warmup, launches queued behind a device sleep so the time is the
    device's (`cuda_ms`); also host-paced, decode and int4 decode with a
    cold L2, flash at both prefill-chunk shapes and in f32, ragged at the
    mixed and the tree step's shapes, chunk at the serving path's two B=1
    launches (warm and cold), at phase 7's adopted-prefix suffix (40
-   tokens over 1000) and at PR 1-4's B=4 table shape.
+   tokens over 1000) and at PR 1-4's B=4 table shape; and each kernel at
+   Falcon-7B's heads (`time_groups`, `falcon7b_*` keys; flash beside
+   SDPA).
 3. The executor's path in f32 (TF32 off) at full Llama-3-8B width, 4
    layers, random weights from a seeded generator: a 1000-token prefill of
    batch 2, 8 greedy decodes and a 24-token follow-up must match
@@ -42,10 +48,11 @@ Phases:
    port client (`DistributedModelForCausalLM`, f32 parameters, push
    routing) generates 9 greedy tokens for the batch-2 1000-token prompt
    (a prefill and 8 decode steps), matching the executor (same limit,
-   identical greedy tokens). Routing: H=24, Hkv=8 (GQA group 3,
-   outside the kernels' domain), 2 layers, a 600-token prefill and 4
-   decodes take the dense routes (no paged or flash launch) and match
-   `block_forward` + `dense_attend` (same limit).
+   identical greedy tokens). Routing, 2 layers, a 600-token prefill and
+   4 decodes matching `block_forward` + `dense_attend` (same limit): at
+   H=24, Hkv=8, hd=128 (GQA group 3, inside the kernels' domain) on the
+   flash and paged decode kernels; at H=12, Hkv=4, hd=256 (outside it) on
+   the dense routes, with no paged or flash launch.
 4. Serving run in bf16: the whole Llama-3-8B (32 layers, full width),
    1024 arena pages, three paths, each with the launch counts reset just
    before it and read just after it (before any profiling):
@@ -279,8 +286,31 @@ Phases:
    Prints the byte reckoning, each run's time to first token, per-token
    medians and peak allocated memory, the phase's seconds, and the
    card's name and power limit.
+14. The Falcon family through the port's registry (published configs,
+   random bf16 weights: LayerNorms with biases, bias-free projections,
+   the parallel residual, a tied head), port BlockServers and the port
+   client; the kernels take Falcon's GQA groups (71 and 16) at run time;
+   launch counts reset and read around each run's sessions (paths
+   "falcon7b", "falcon7b_dn", "falcon40b", "falcon40b_mixed"):
+   (a) Falcon-7B at published width and all 32 layers (71 heads of 64
+       over one KV head), [0, 16) + [16, 32), `max_batch=1`: 2 sessions
+       of 32 tokens from 1000-token prompts and a 16-token follow-up with
+       2 more; tokens and hidden states bit for bit the solo executor's,
+       held teacher-forced against an f32 truth; flash, paged decode and
+       chunk at their formulas; then `server_decode=True` on one [0, 32)
+       server: tokens identical, every call fused;
+   (b) Falcon-40B at published width (128 heads over 8, two LayerNorms),
+       2 of 60 layers, written as a `falcon` checkpoint in HF's grouped
+       fused-QKV layout: run 1 as (a) against a solo executor over the
+       checkpoint; run 2 with `mixed_batch=True`, `prefill_chunk=8`,
+       `max_batch=8` and a third, late session: the ragged kernel at
+       group 16, launches at the servers' counters, held teacher-forced.
+   Prints the byte reckoning, each run's time to first token, per-token
+   medians and peak allocated memory, the phase's seconds, and the
+   card's name and power limit.
 
-Prints the card's name and power limit, per-phase results, a
+Prints the card's name and power limit, per-phase results, each phase's
+end time (`[timing]`), a
 `{"kernels": [...]}` line, and as its last line
 `{"ok": true, "device": {...}}`. Any failed phase exits non-zero with no
 result line; so does a machine without CUDA or a directory without the
@@ -291,6 +321,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import concurrent.futures
 import contextlib
 import json
 import pathlib
@@ -430,9 +461,11 @@ def phase_build():
         for line in log.splitlines():
             if "Performance Loss" in line:  # e.g. serialized wgmma
                 say(f"[build] {name}: {line.strip()}")
-    for name in sources:
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        ops = list(pool.map(lambda n: tensor_core_ops(build, n), sources))
+    for name, counts in zip(sources, ops):
         say(f"[build] {name}: tensor-core instructions in the SASS "
-            f"(cuobjdump): {tensor_core_ops(build, name)}")
+            f"(cuobjdump): {counts}")
 
 
 def tensor_core_ops(build, name) -> dict[str, int] | str:
@@ -638,6 +671,7 @@ def phase_kernels() -> list[dict]:
 
         phase_kernels_ragged_int4(gen, dtype, check)
         phase_kernels_edges(gen, dtype, check)
+        phase_kernels_groups(gen, dtype, check)
 
     # times at the serving run's bf16 shapes (phase 4)
     extra: dict[str, dict] = {}  # per kernel: times beyond the row's own
@@ -647,6 +681,7 @@ def phase_kernels() -> list[dict]:
     chunk_row, extra["paged_chunk_attention"] = time_chunk(gen, check)
     rows.append(chunk_row)
     rows += time_ragged_int4(gen, extra)
+    time_groups(gen, extra)
 
     out = []
     for name, ms, plain, b_ms, by, library in rows:
@@ -767,7 +802,7 @@ def time_decode(gen) -> tuple[tuple, dict]:
         2 * kv_rows * HKV * HD * 2 + nbytes(qd, qd, pt, lens),
         4 * kv_rows * H * HD, dt,
     )
-    chunk, chunks = pa.decode_split(64, PS, 4, HKV)
+    chunk, chunks = pa.decode_split(64, PS, 4, HKV, H // HKV)
     extra = {
         "cold_ms": cuda_ms_cold(lambda: pa.paged_decode_attention(*args)),
         "host_paced_ms": cuda_ms(lambda: pa.paged_decode_attention(*args),
@@ -891,7 +926,7 @@ def phase_kernels_edges(gen, dtype, check):
 
     ks, vs = _arena(gen, dtype, 1024)
     pt = _page_table(gen, 8, 64, 1024)
-    chunk, chunks = pa.decode_split(64, PS, 8, HKV)
+    chunk, chunks = pa.decode_split(64, PS, 8, HKV, H // HKV)
     lens = torch.tensor([1, 15, 16, 17, chunk + 1, 0, 64 * PS, 1000], **i32)
     qd = _unit(gen, (8, H, HD), dtype)
     mid = 1000 - (2 * chunk + chunk // 2)  # row 7's window starts mid-chunk
@@ -910,7 +945,7 @@ def phase_kernels_edges(gen, dtype, check):
         zeros("paged_decode_attention", case, first[5])
     ks, vs = _arena(gen, dtype, 512)
     pt = _page_table(gen, 1, 500, 512)
-    chunk, chunks = pa.decode_split(500, PS, 1, HKV)
+    chunk, chunks = pa.decode_split(500, PS, 1, HKV, H // HKV)
     args = (_unit(gen, (1, H, HD), dtype), ks, vs, pt,
             torch.tensor([8000], **i32), PS, None, 0)
     check("paged_decode_attention", dtype,
@@ -950,7 +985,7 @@ def int4_edges(gen, dtype, check, zeros):
     i32 = dict(dtype=torch.int32, device="cuda")
     ks, vs = (quantize(x) for x in _arena(gen, torch.float32, 1024))
     pt = _page_table(gen, 8, 64, 1024)
-    chunk, chunks = pa.decode_split(64, PS, 8, HKV)
+    chunk, chunks = pa.decode_split(64, PS, 8, HKV, H // HKV)
     lens = torch.tensor([1, 15, 16, 17, chunk + 1, 0, 64 * PS, 1000], **i32)
     qd = _unit(gen, (8, H, HD), dtype)
     mid = 1000 - (2 * chunk + chunk // 2)  # row 7's window starts mid-chunk
@@ -964,7 +999,7 @@ def int4_edges(gen, dtype, check, zeros):
         zeros(name, case, got[5])
     ks, vs = (quantize(x) for x in _arena(gen, torch.float32, 512))
     pt = _page_table(gen, 1, 500, 512)
-    chunk, chunks = pa.decode_split(500, PS, 1, HKV)
+    chunk, chunks = pa.decode_split(500, PS, 1, HKV, H // HKV)
     args = (_unit(gen, (1, H, HD), dtype), ks, vs, pt,
             torch.tensor([8000], **i32), PS, None, 0)
     check(name, dtype, f"B=1 lens=8000 ({chunks} chunks of {chunk})",
@@ -1136,6 +1171,213 @@ def chunk_edges(gen, dtype, check, zeros):
             run(f"{geo} B=1 tree T=544 lens 1400",
                 _unit(gen, (1, 544, h, hd), dtype), ks, vs, pt,
                 torch.tensor([1400], **i32), tree=_tree(544, gen)[None].cuda())
+
+
+# the GQA groups of phase 2's widened domain: (label, H, Hkv, hd)
+GROUP_GEOMETRIES = (
+    ("Falcon-7B", 71, 1, 64),
+    ("Falcon-40B", 128, 8, 64),
+    ("Falcon-180B", 232, 8, 64),
+    ("group 3", 24, 8, 128),
+)
+
+
+def phase_kernels_groups(gen, dtype, check):
+    """Phase 2 cases of all five kernels at the wide and odd groups of
+    `GROUP_GEOMETRIES` (Falcon-7B's 71 query heads over one KV head,
+    Falcon-40B's 16, Falcon-180B's 29, and 3 at hd 128): several head
+    tiles a KV head, and tiles with masked heads. Flash causal and not with a lens=0
+    row; decode and int4 decode with a window and a lens=0 row; chunk: a
+    follow-up (t_real < T, padding rows exact zeros) and a tree; ragged:
+    a chunk's rows, decode rows, a lens=0 row and padding rows, with and
+    without a window, and two trees with padding rows. Every paged case is
+    launched twice, equal bit for bit."""
+    import torch
+
+    from bloombee_tpu_torch.kv.quant import quantize
+    from bloombee_tpu_torch.ops.cuda import flash_attention as fa
+    from bloombee_tpu_torch.ops.cuda import paged_attention as pa
+
+    i32 = dict(dtype=torch.int32, device="cuda")
+
+    def zeros(name, case, x):
+        if torch.count_nonzero(x).item():
+            raise AssertionError(f"{name} {case}: a dead row is not zeros")
+
+    for label, h, hkv, hd in GROUP_GEOMETRIES:
+        geo = f"{label} H={h} Hkv={hkv} hd={hd}"
+        q = _unit(gen, (3, 100, h, hd), dtype)
+        k = _unit(gen, (3, 150, hkv, hd), dtype)
+        v = _unit(gen, (3, 150, hkv, hd), dtype)
+        st = torch.tensor([37, 0, 13], **i32)
+        ln = torch.tensor([137, 0, 150], **i32)
+        for causal in (True, False):
+            case = f"{geo} causal={causal} lens {ln.tolist()}"
+            args = (q, k, v, causal, None, st, ln)
+            got = fa.flash_attention(*args)
+            check("flash_attention", dtype, case, got,
+                  fa.flash_attention_reference(*args))
+            zeros("flash_attention", case, got[1])
+
+        ks = _unit(gen, (256 * PS, hkv, hd), dtype)
+        vs = _unit(gen, (256 * PS, hkv, hd), dtype)
+        kq, vq = quantize(ks.float()), quantize(vs.float())
+        pt = _page_table(gen, 4, 64, 256)
+        lens = torch.tensor([1000, 17, 0, 1024], **i32)
+        qd = _unit(gen, (4, h, hd), dtype)
+        for window in (0, 100):
+            case = f"{geo} lens {lens.tolist()} window={window}"
+            args = (qd, ks, vs, pt, lens, PS, None, window)
+            got = twice("paged_decode_attention", dtype, case, check,
+                        lambda: pa.paged_decode_attention(*args),
+                        pa.paged_decode_attention_reference(*args))
+            zeros("paged_decode_attention", case, got[2])
+            args = (qd, kq, vq, pt, lens, PS, None, window)
+            got = twice("paged_decode_attention_int4", dtype, case, check,
+                        lambda: pa.paged_decode_attention_int4(*args),
+                        pa.paged_decode_attention_int4_reference(*args))
+            zeros("paged_decode_attention_int4", case, got[2])
+
+        lens = torch.tensor([600, 0, 77], **i32)
+        pt3 = pt[:3].contiguous()
+        args = (_unit(gen, (3, 24, h, hd), dtype), ks, vs, pt3, lens, PS,
+                None, None, 0, 20)
+        case = f"{geo} follow-up T=24 t_real=20 lens {lens.tolist()}"
+        got = twice("paged_chunk_attention", dtype, case, check,
+                    lambda: pa.paged_chunk_attention(*args),
+                    pa.paged_chunk_attention_reference(*args))
+        zeros("paged_chunk_attention", case, got[1])
+        zeros("paged_chunk_attention", case, got[:, 20:])
+        tree = torch.stack([_tree(8, gen) for _ in range(3)]).cuda()
+        args = (_unit(gen, (3, 8, h, hd), dtype), ks, vs, pt3,
+                lens.clamp_min(8), PS, tree, None, 0, 8)
+        case = f"{geo} tree T=8 lens {lens.clamp_min(8).tolist()}"
+        twice("paged_chunk_attention", dtype, case, check,
+              lambda: pa.paged_chunk_attention(*args),
+              pa.paged_chunk_attention_reference(*args))
+
+        # ragged mixed: 5 rows of a chunk of sequence 0, decode rows of
+        # sequences 1 and 3, a row of the lens=0 sequence 2, padding rows
+        lens = torch.tensor([600, 300, 0, 1024], **i32)
+        q_seq = torch.tensor([0] * 5 + [1, 2, 3, 4, 4], **i32)
+        q_pos = torch.tensor([595, 596, 597, 598, 599, 299, 0, 1023, 0, 0],
+                             **i32)
+        for window in (0, 100):
+            case = (f"{geo} 5-row chunk + 2 decode + lens=0 + 2 padding "
+                    f"window={window}")
+            args = (_unit(gen, (10, h, hd), dtype), ks, vs, pt, lens, q_seq,
+                    q_pos, PS, None, window)
+            got = twice("paged_ragged_attention", dtype, case, check,
+                        lambda: pa.paged_ragged_attention(*args),
+                        pa.paged_ragged_attention_reference(*args))
+            zeros("paged_ragged_attention", case, got[[6, 8, 9]])
+        nt = torch.tensor([8, 8, 0, 0], **i32)
+        lens = torch.tensor([508, 208, 0, 0], **i32)
+        tree_rows = torch.cat([_tree(8, gen), _tree(8, gen)]).to(
+            torch.int32).cuda()
+        tree_rows = torch.cat([tree_rows, torch.zeros((3, 8), **i32)])
+        q_seq = torch.tensor([0] * 8 + [1] * 8 + [4] * 3, **i32)
+        args = (_unit(gen, (19, h, hd), dtype), ks, vs, pt, lens, q_seq,
+                torch.zeros((19,), **i32), PS)
+        tr = dict(nt=nt, tree_rows=tree_rows)
+        case = f"{geo} tree 2 x 8 rows + 3 padding"
+        got = twice("paged_ragged_attention", dtype, case, check,
+                    lambda: pa.paged_ragged_attention(*args, **tr),
+                    pa.paged_ragged_attention_reference(*args, **tr))
+        zeros("paged_ragged_attention", case, got[16:])
+
+
+def time_groups(gen, extra) -> None:
+    """bf16 times of the five kernels at Falcon-7B's heads (71 over one KV
+    head, hd 64; phase 14's shapes) into `extra` under `falcon7b_*` keys,
+    each beside its plain version and bound: flash at a 512-token prefill
+    chunk over 1024 keys (B=2, starts 512, lens 1000) beside SDPA; decode
+    and int4 decode of 2 sessions at 1001 tokens; chunk at a 24-token
+    follow-up over 1056 (a 128-page table); ragged at 2 decode rows + a
+    32-token chunk + 30 padding rows."""
+    import torch
+
+    from bloombee_tpu_torch.kv.quant import quantize
+    from bloombee_tpu_torch.ops.attention import repeat_kv
+    from bloombee_tpu_torch.ops.cuda import flash_attention as fa
+    from bloombee_tpu_torch.ops.cuda import paged_attention as pa
+
+    dt = torch.bfloat16
+    h, hkv, hd = 71, 1, 64
+    i32 = dict(dtype=torch.int32, device="cuda")
+    scale = hd**-0.5
+
+    def put(name, ms, plain, b, library=None):
+        extra.setdefault(name, {}).update({
+            "falcon7b_ms": ms, "falcon7b_plain_ms": plain,
+            "falcon7b_bound_ms": b[0], "falcon7b_bound_by": b[1],
+            **({} if library is None else {"falcon7b_library_ms": library}),
+        })
+
+    q = _unit(gen, (2, 512, h, hd), dt)
+    k = _unit(gen, (2, 1024, hkv, hd), dt)
+    v = _unit(gen, (2, 1024, hkv, hd), dt)
+    starts = torch.full((2,), 512, **i32)
+    lens = torch.full((2,), 1000, **i32)
+    args = (q, k, v, True, scale, starts, lens)
+    pos_q = starts[:, None] + torch.arange(512, device="cuda")
+    kpos = torch.arange(1024, device="cuda")
+    mask = ((kpos[None, None] <= pos_q[:, :, None])
+            & (kpos[None, None] < lens[:, None, None]))[:, None]
+    qt_, kt_, vt_ = (x.transpose(1, 2) for x in
+                     (q, repeat_kv(k, h), repeat_kv(v, h)))
+    library = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt_, kt_, vt_, attn_mask=mask, scale=scale))
+    put("flash_attention", cuda_ms(lambda: fa.flash_attention(*args)),
+        cuda_ms(lambda: fa.flash_attention_reference(*args), iters=5),
+        bound(nbytes(q, k[:, :1000], v[:, :1000], q, starts, lens),
+              4 * mask.sum().item() * h * hd, dt), library)
+
+    ks = _unit(gen, (1024 * PS, hkv, hd), dt)
+    vs = _unit(gen, (1024 * PS, hkv, hd), dt)
+    pt = _page_table(gen, 2, 64, 1024)
+    lens = torch.full((2,), 1001, **i32)
+    qd = _unit(gen, (2, h, hd), dt)
+    args = (qd, ks, vs, pt, lens, PS, scale, 0)
+    put("paged_decode_attention",
+        cuda_ms(lambda: pa.paged_decode_attention(*args)),
+        cuda_ms(lambda: pa.paged_decode_attention_reference(*args)),
+        bound(2 * 2 * 1001 * hkv * hd * 2 + nbytes(qd, qd, pt, lens),
+              4 * 2 * 1001 * h * hd, dt))
+    kq, vq = quantize(ks.float()), quantize(vs.float())
+    args = (qd, kq, vq, pt, lens, PS, scale, 0)
+    per_row = hd // 2 + 2 * (hd // 32) * 2  # codes + f16 scale and zero
+    put("paged_decode_attention_int4",
+        cuda_ms(lambda: pa.paged_decode_attention_int4(*args)),
+        cuda_ms(lambda: pa.paged_decode_attention_int4_reference(*args)),
+        bound(2 * 2 * 1001 * hkv * per_row + nbytes(qd, qd, pt, lens),
+              4 * 2 * 1001 * h * hd, dt))
+
+    qc = _unit(gen, (1, 32, h, hd), dt)
+    pt1 = _page_table(gen, 1, 128, 1024)
+    lens = torch.tensor([1056], **i32)
+    args = (qc, ks, vs, pt1, lens, PS, None, scale, 0, 24)
+    pairs = sum(1032 + i + 1 for i in range(24))
+    put("paged_chunk_attention",
+        cuda_ms(lambda: pa.paged_chunk_attention(*args)),
+        cuda_ms(lambda: pa.paged_chunk_attention_reference(*args)),
+        bound(2 * 1056 * hkv * hd * 2 + nbytes(qc, qc, lens)
+              + 66 * 4, 4 * pairs * h * hd, dt))
+
+    lens = torch.tensor([1001, 1001, 32], **i32)
+    q_seq = torch.tensor([0, 1] + [2] * 32 + [3] * 30, **i32)
+    q_pos = torch.cat([lens[:2] - 1, torch.arange(32, **i32),
+                       torch.zeros((30,), **i32)])
+    pt3 = _page_table(gen, 3, 128, 1024)
+    args = (_unit(gen, (64, h, hd), dt), ks, vs, pt3, lens, q_seq, q_pos,
+            PS, scale, 0)
+    pairs = 2 * 1001 + 32 * 33 // 2
+    put("paged_ragged_attention",
+        cuda_ms(lambda: pa.paged_ragged_attention(*args)),
+        cuda_ms(lambda: pa.paged_ragged_attention_reference(*args)),
+        bound(2 * (2 * 1001 + 32) * hkv * hd * 2 + 2 * 34 * h * hd * 2
+              + nbytes(pt3[:, :63], lens, q_seq[:34], q_pos[:34]),
+              4 * pairs * h * hd, dt))
 
 
 def ragged_mix(gen, dtype, window_case: bool):
@@ -1330,11 +1572,12 @@ def random_model(spec, dtype, seed):
     extras) and client parameters from one seeded generator on the card:
     an N(0, 1) embedding and an N(0, 1/D) head or, for a tied spec, an
     N(0, 1/D) embedding whose transpose is the head (a view, no second
-    copy), so tied logits are unit-scale too; a LayerNorm spec (Bloom)
-    also gets the embedding LayerNorm and both LayerNorms' biases of
-    standard deviation 0.1."""
+    copy), so tied logits are unit-scale too; then the family's client
+    extras (`Family.client_extras`) in their order: a unit embedding
+    LayerNorm, and biases of standard deviation 0.1."""
     import torch
 
+    from bloombee_tpu_torch.models.auto import get_family
     from bloombee_tpu_torch.models.llama.block import init_block_params
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -1357,9 +1600,10 @@ def random_model(spec, dtype, seed):
         client["lm_head"] = (
             torch.randn((d, vocab), generator=gen, device="cuda") * d**-0.5
         ).to(dtype)
-    if spec.norm_type == "ln":
-        client["embed_norm"] = torch.ones_like(client["norm"])
-        for name in ("embed_norm_bias", "norm_bias"):
+    for name in get_family(spec.family).client_extras:
+        if name == "embed_norm":
+            client[name] = torch.ones_like(client["norm"])
+        else:  # a LayerNorm's bias
             client[name] = (torch.randn((d,), generator=gen, device="cuda")
                             * 0.1).to(dtype)
     return layers, client, gen
@@ -1452,7 +1696,8 @@ def phase_f32_path():
     f32_served(layers, client, spec, fed, out, greedy)
     del layers, client
     torch.cuda.empty_cache()
-    f32_group3()
+    f32_routing(24, 8, 128, on_kernels=True)  # GQA group 3
+    f32_routing(12, 4, 256, on_kernels=False)  # head_dim 256
 
 
 def executor_pair(layers, spec, manager, dtype):
@@ -1632,12 +1877,15 @@ def f32_int4(layers, client, spec, gen):
         raise AssertionError("f32 int4 check failed")
 
 
-def f32_group3():
-    """Phase 3, routing outside the kernels' shape domain: H=24, Hkv=8
-    (GQA group 3), hd=128, 2 layers in f32. A 600-token prefill (a 512-token
-    flash bucket and an 88-token chunk) and 4 decodes past the paged
-    crossover must take the dense routes, with no paged or flash launch,
-    and match block_forward + dense_attend."""
+def f32_routing(h: int, hkv: int, hd: int, on_kernels: bool):
+    """Phase 3, routing by the kernels' shape domain: H, Hkv, hd, 2 layers
+    at width 3072 in f32. A 600-token prefill (a 512-token flash bucket and
+    an 88-token chunk) and 4 decodes past the paged crossover must match
+    block_forward + dense_attend, and take the kernels at exact counts
+    (`on_kernels`, as at GQA group 3 with hd 128: flash for both prefill
+    chunks and paged decode for the decodes, 4 and 8 launches, no other
+    kernel) or, outside the domain (hd 256), the dense routes with no
+    launch."""
     import torch
 
     from bloombee_tpu_torch.kv.cache_manager import CacheManager
@@ -1653,7 +1901,7 @@ def f32_group3():
 
     spec = ModelSpec(
         family="llama", hidden_size=3072, intermediate_size=8192,
-        num_attention_heads=24, num_key_value_heads=8, head_dim=HD,
+        num_attention_heads=h, num_key_value_heads=hkv, head_dim=hd,
         num_hidden_layers=2, vocab_size=32000, rms_norm_eps=1e-5,
         rope_theta=500000.0,
     )
@@ -1662,7 +1910,7 @@ def f32_group3():
         init_block_params(gen, spec, dtype=torch.float32, device="cuda")
         for _ in range(2)
     ]
-    manager = CacheManager(2, 64, PS, 8, HD, dtype=torch.float32,
+    manager = CacheManager(2, 64, PS, hkv, hd, dtype=torch.float32,
                            device="cuda")
     ex = SpanExecutor(layers, spec, manager, max_chunk_tokens=512,
                       compute_dtype=torch.float32, device="cuda")
@@ -1683,18 +1931,29 @@ def f32_group3():
     with torch.no_grad():
         ref = x
         pos = torch.arange(604, device="cuda")[None]
-        cos, sin = rotary_cos_sin(pos, HD, spec.rope_theta)
+        cos, sin = rotary_cos_sin(pos, hd, spec.rope_theta)
         for p in layers:
             ref, _ = block_forward(p, spec, ref, cos, sin, dense_attend())
     err = (out - ref).abs().max().item()
     lim = 1e-3 * ref.abs().max().item()
-    say(f"[f32-group3] H=24 Hkv=8 hd=128, 2 layers: prefill 600 + 4 decodes "
-        f"on the dense routes (paged_supported={ex.paged_supported}, "
-        f"flash_supported={ex.flash_supported}) vs dense reference: "
-        f"max_abs_err={err:.3e} (limit {lim:.3e}), launches {launches}")
-    if (ex.paged_supported or ex.flash_supported or launches
-            or not err <= lim or not torch.isfinite(out).all().item()):
-        raise AssertionError("group-3 routing check failed")
+    route = "kernel" if on_kernels else "dense"
+    say(f"[f32-routing] H={h} Hkv={hkv} hd={hd}, 2 layers: prefill 600 + 4 "
+        f"decodes on the {route} routes (paged_supported="
+        f"{ex.paged_supported}, flash_supported={ex.flash_supported}) vs "
+        f"dense reference: max_abs_err={err:.3e} (limit {lim:.3e}), "
+        f"launches {launches}")
+    # on the kernels, per layer: flash for both prefill chunks (512 tokens,
+    # and 88 bucketed to 128, which is no short chunk for the chunk
+    # kernel), paged decode for each of the 4 decodes; nothing else
+    want = {"flash_attention": 2 * 2, "paged_decode_attention": 2 * 4}
+    got = {k: n for k, n in launches.items() if n}
+    if on_kernels:
+        routed = ex.paged_supported and ex.flash_supported and got == want
+    else:
+        routed = not (ex.paged_supported or ex.flash_supported or got)
+    if not (routed and err <= lim and torch.isfinite(out).all().item()):
+        raise AssertionError(f"H={h} Hkv={hkv} hd={hd} routing check "
+                             "failed")
 
 
 class ServerLoop:
@@ -2257,10 +2516,11 @@ def phase_serving(profile: bool = False) -> dict[str, dict]:
             f"({2 * spec.num_hidden_layers})"
         )
     torch.cuda.empty_cache()
-    launches.update(phase_served(layers, spec, client, gen))
-    launches.update(phase_spec(layers, spec, client, gen))
-    launches.update(phase_prefix(layers, spec, client, gen))
-    launches.update(phase_decode_n(layers, spec, client, gen))
+    for phase in (phase_served, phase_spec, phase_prefix, phase_decode_n):
+        t0 = time.perf_counter()
+        launches.update(phase(layers, spec, client, gen))
+        say(f"[timing] {phase.__name__} took "
+            f"{time.perf_counter() - t0:.1f} s")
     launches.update(phase_cli(gen))
     return launches
 
@@ -3807,7 +4067,50 @@ HF_EXTRA_KEYS = {
 }
 
 
-def bloom_layer_tensors(layer: dict, i: int, n_head: int) -> dict:
+def llama_layer_tensors(layer: dict, i: int, spec) -> dict:
+    """A port layer under HF's Llama names (`model.layers.{i}.*`, matrices
+    transposed to [out, in]) with the family's extras (`HF_EXTRA_KEYS`)
+    and, for an MoE spec, its router and each expert's matrices under the
+    family's names (`Family.moe_keys`)."""
+    from bloombee_tpu_torch.models.auto import get_family
+    from bloombee_tpu_torch.models.llama.block import (
+        HF_ATTENTION_KEYS,
+        HF_BLOCK_KEYS,
+    )
+
+    p = f"model.layers.{i}"
+    keys = HF_ATTENTION_KEYS if spec.num_experts else HF_BLOCK_KEYS
+    out = {
+        f"{p}.{key}": layer[name].t() if transpose else layer[name]
+        for key, (name, transpose) in keys.items()
+    }
+    if spec.num_experts:
+        router, experts, names = get_family(spec.family).moe_keys
+        out[f"{p}.{router}.weight"] = layer["router"].t()
+        for e in range(spec.num_experts):
+            for key, name in zip(("experts_gate", "experts_up",
+                                  "experts_down"), names):
+                out[f"{p}.{experts}.{e}.{name}.weight"] = layer[key][e].t()
+    out.update({f"{p}.{key}": layer[name]
+                for name, key in HF_EXTRA_KEYS.items() if name in layer})
+    return out
+
+
+def llama_head_tensors(gen, spec) -> dict:
+    """Llama's embeddings (N(0, 1)) and unit final norm."""
+    import torch
+
+    d = spec.hidden_size
+    return {
+        "model.embed_tokens.weight": torch.randn(
+            (spec.vocab_size, d), generator=gen, device="cuda"
+        ).to(torch.bfloat16),
+        "model.norm.weight": torch.ones((d,), dtype=torch.bfloat16,
+                                        device="cuda"),
+    }
+
+
+def bloom_layer_tensors(layer: dict, i: int, spec) -> dict:
     """A port Bloom layer under the hub's BLOOM names (`h.{i}.*`, no
     `transformer.` prefix): the q/k/v projections fused into
     `self_attention.query_key_value` with its rows per head as [q, k, v]
@@ -3815,7 +4118,7 @@ def bloom_layer_tensors(layer: dict, i: int, n_head: int) -> dict:
     import torch
 
     p = f"h.{i}"
-    d = layer["q_proj"].shape[0]
+    d, n_head = spec.hidden_size, spec.num_attention_heads
     hd = layer["q_proj"].shape[1] // n_head
     out = {}
     for ln in ("input_layernorm", "post_attention_layernorm"):
@@ -3835,27 +4138,94 @@ def bloom_layer_tensors(layer: dict, i: int, n_head: int) -> dict:
     return out
 
 
+def bloom_head_tensors(gen, spec) -> dict:
+    """BLOOM's `word_embeddings` (N(0, 1/D), tied to the head), its
+    LayerNorm and `ln_f`, unit weights and biases of standard deviation
+    0.1."""
+    import torch
+
+    d = spec.hidden_size
+    head = {"word_embeddings.weight": (torch.randn(
+        (spec.vocab_size, d), generator=gen, device="cuda"
+    ) * d**-0.5).to(torch.bfloat16)}
+    for norm in ("word_embeddings_layernorm", "ln_f"):
+        head[f"{norm}.weight"] = torch.ones((d,), dtype=torch.bfloat16,
+                                            device="cuda")
+        head[f"{norm}.bias"] = (torch.randn(
+            (d,), generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
+    return head
+
+
+def falcon_layer_tensors(layer: dict, i: int, spec) -> dict:
+    """A port Falcon layer under HF's `FalconForCausalLM` names
+    (`transformer.h.{i}.*`): the q/k/v projections fused into
+    `self_attention.query_key_value`, for the new decoder architecture
+    with its rows grouped per KV head as [n_rep q | 1 k | 1 v] (else [H q
+    | Hkv k | Hkv v]), `ln_attn` / `ln_mlp` for two LayerNorms (else
+    `input_layernorm`), every matrix transposed to [out, in]."""
+    import torch
+
+    p = f"transformer.h.{i}"
+    d, hd = spec.hidden_size, spec.head_dim
+    hkv = spec.num_key_value_heads
+    q, k, v = (layer[f"{x}_proj"].t() for x in "qkv")
+    if spec.num_ln_in_parallel_attn == 2:
+        norms = {"ln_attn": "input_layernorm", "ln_mlp": "mlp_layernorm"}
+        qkv = torch.cat([q.reshape(hkv, -1, hd, d),
+                         k.reshape(hkv, 1, hd, d),
+                         v.reshape(hkv, 1, hd, d)], dim=1).reshape(-1, d)
+    else:
+        norms = {"input_layernorm": "input_layernorm"}
+        qkv = torch.cat([q, k, v])
+    out = {f"{p}.self_attention.query_key_value.weight": qkv}
+    for hf, key in norms.items():
+        out[f"{p}.{hf}.weight"] = layer[key]
+        out[f"{p}.{hf}.bias"] = layer[f"{key}_bias"]
+    for key, hf in (("o", "self_attention.dense"),
+                    ("up", "mlp.dense_h_to_4h"),
+                    ("down", "mlp.dense_4h_to_h")):
+        out[f"{p}.{hf}.weight"] = layer[f"{key}_proj"].t()
+    return out
+
+
+def falcon_head_tensors(gen, spec) -> dict:
+    """Falcon's `transformer.word_embeddings` (N(0, 1/D), tied to the
+    head) and `transformer.ln_f`, a unit weight and a bias of standard
+    deviation 0.1."""
+    import torch
+
+    d = spec.hidden_size
+    return {
+        "transformer.word_embeddings.weight": (torch.randn(
+            (spec.vocab_size, d), generator=gen, device="cuda"
+        ) * d**-0.5).to(torch.bfloat16),
+        "transformer.ln_f.weight": torch.ones(
+            (d,), dtype=torch.bfloat16, device="cuda"),
+        "transformer.ln_f.bias": (torch.randn(
+            (d,), generator=gen, device="cuda") * 0.1).to(torch.bfloat16),
+    }
+
+
+# a family's HF checkpoint layout, (layer tensors, head tensors), by
+# model_type; a family not listed is written in Llama's
+CHECKPOINT_LAYOUTS = {
+    "bloom": (bloom_layer_tensors, bloom_head_tensors),
+    "falcon": (falcon_layer_tensors, falcon_head_tensors),
+}
+
+
 def write_checkpoint(path: pathlib.Path, spec, seed: int,
                      config: dict | None = None) -> None:
-    """A random checkpoint at `spec`'s width and depth in the HF layout
-    (config.json, one safetensors file per layer plus one for the
-    embeddings, final norm and head, an index), written a layer at a
-    time. `config` is the config.json to write (default: a Llama one from
-    `spec`); the layers carry the family's extras (`init_block_params`),
-    an MoE spec's layers its router and each expert's matrices under the
-    family's names (`Family.moe_keys`), and a tied spec writes no
-    lm_head. A Bloom spec is written in the hub's BLOOM layout
-    (`bloom_layer_tensors`; `word_embeddings`, its LayerNorm and `ln_f`
-    with their biases, the N(0, 1/D) embedding tied to the head)."""
+    """A random checkpoint at `spec`'s width and depth in the family's HF
+    layout (`CHECKPOINT_LAYOUTS`: config.json, one safetensors file per
+    layer plus one for the embeddings, final norm and head, an index),
+    written a layer at a time. `config` is the config.json to write
+    (default: a Llama one from `spec`); the layers carry the family's
+    extras (`init_block_params`), and a tied spec writes no lm_head."""
     import torch
     from safetensors.torch import save_file
 
-    from bloombee_tpu_torch.models.auto import get_family
-    from bloombee_tpu_torch.models.llama.block import (
-        HF_ATTENTION_KEYS,
-        HF_BLOCK_KEYS,
-        init_block_params,
-    )
+    from bloombee_tpu_torch.models.llama.block import init_block_params
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     d, vocab = spec.hidden_size, spec.vocab_size
@@ -3872,59 +4242,20 @@ def write_checkpoint(path: pathlib.Path, spec, seed: int,
     }
     (path / "config.json").write_text(json.dumps(config))
     weight_map = {}
+    layer_tensors, head_tensors = CHECKPOINT_LAYOUTS.get(
+        spec.family, (llama_layer_tensors, llama_head_tensors))
 
     def save(tensors: dict, name: str) -> None:
         save_file({k: v.contiguous().cpu() for k, v in tensors.items()},
                   str(path / name))
         weight_map.update({k: name for k in tensors})
 
-    bloom = spec.family == "bloom"
     for i in range(spec.num_hidden_layers):
         layer = init_block_params(gen, spec, dtype=torch.bfloat16,
                                   device="cuda")
-        if bloom:
-            save(bloom_layer_tensors(layer, i, spec.num_attention_heads),
-                 f"layer-{i:02d}.safetensors")
-            del layer
-            continue
-        keys = HF_ATTENTION_KEYS if spec.num_experts else HF_BLOCK_KEYS
-        tensors = {
-            f"model.layers.{i}.{key}": (
-                layer[name].t() if transpose else layer[name]
-            )
-            for key, (name, transpose) in keys.items()
-        }
-        if spec.num_experts:
-            router, experts, names = get_family(spec.family).moe_keys
-            p = f"model.layers.{i}"
-            tensors[f"{p}.{router}.weight"] = layer["router"].t()
-            for e in range(spec.num_experts):
-                for key, name in zip(("experts_gate", "experts_up",
-                                      "experts_down"), names):
-                    tensors[f"{p}.{experts}.{e}.{name}.weight"] = \
-                        layer[key][e].t()
-        tensors.update({f"model.layers.{i}.{key}": layer[name]
-                        for name, key in HF_EXTRA_KEYS.items()
-                        if name in layer})
-        save(tensors, f"layer-{i:02d}.safetensors")
-        del layer, tensors
-    if bloom:
-        head = {"word_embeddings.weight": (torch.randn(
-            (vocab, d), generator=gen, device="cuda"
-        ) * d**-0.5).to(torch.bfloat16)}
-        for norm in ("word_embeddings_layernorm", "ln_f"):
-            head[f"{norm}.weight"] = torch.ones((d,), dtype=torch.bfloat16,
-                                                device="cuda")
-            head[f"{norm}.bias"] = (torch.randn(
-                (d,), generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
-    else:
-        head = {
-            "model.embed_tokens.weight": torch.randn(
-                (vocab, d), generator=gen, device="cuda"
-            ).to(torch.bfloat16),
-            "model.norm.weight": torch.ones((d,), dtype=torch.bfloat16,
-                                            device="cuda"),
-        }
+        save(layer_tensors(layer, i, spec), f"layer-{i:02d}.safetensors")
+        del layer
+    head = head_tensors(gen, spec)
     if not spec.tie_word_embeddings:
         head["lm_head.weight"] = (
             torch.randn((vocab, d), generator=gen, device="cuda") * d**-0.5
@@ -4290,6 +4621,22 @@ FAMILY_CONFIGS = {
         "hidden_size": 14336, "n_head": 112, "n_layer": 70,
         "vocab_size": 250880, "layer_norm_epsilon": 1e-5,
         "apply_residual_connection_post_layernorm": False,
+        "torch_dtype": "bfloat16",
+    },
+    "falcon-7b": {  # tiiuae/falcon-7b
+        "model_type": "falcon", "architectures": ["FalconForCausalLM"],
+        "hidden_size": 4544, "num_attention_heads": 71,
+        "num_hidden_layers": 32, "vocab_size": 65024, "multi_query": True,
+        "parallel_attn": True, "new_decoder_architecture": False,
+        "bias": False, "alibi": False, "layer_norm_epsilon": 1e-5,
+        "torch_dtype": "bfloat16",
+    },
+    "falcon-40b": {  # tiiuae/falcon-40b
+        "model_type": "falcon", "architectures": ["FalconForCausalLM"],
+        "hidden_size": 8192, "num_attention_heads": 128,
+        "num_kv_heads": 8, "num_hidden_layers": 60, "vocab_size": 65024,
+        "parallel_attn": True, "new_decoder_architecture": True,
+        "bias": False, "alibi": False, "layer_norm_epsilon": 1e-5,
         "torch_dtype": "bfloat16",
     },
 }
@@ -5324,6 +5671,215 @@ def phase_bloom() -> dict:
     return by_path
 
 
+def falcon_bytes(spec) -> dict:
+    """The byte reckoning of a Falcon spec in bf16: a layer (q, k, v and o,
+    the 4h MLP's two matrices, one or two LayerNorms with biases), the
+    whole model's layers, the embedding (the head is its view) and the KV a
+    token a layer (GB, MB, B)."""
+    d, n = spec.hidden_size, spec.num_hidden_layers
+    q = spec.num_attention_heads * spec.head_dim
+    kv = spec.num_key_value_heads * spec.head_dim
+    norms = 2 * d * spec.num_ln_in_parallel_attn
+    layer = (2 * d * q + 2 * d * kv + 2 * d * spec.intermediate_size
+             + norms) * 2
+    return {
+        "layer_mb": layer / 1e6,
+        "layers_gb": n * layer / 1e9,
+        "embed_and_head_mb": spec.vocab_size * d * 2 / 1e6,
+        "kv_b_a_token_a_layer": 2 * kv * 2,
+    }
+
+
+def phase_falcon() -> dict:
+    """Phase 14: the Falcon family through the port's registry (published
+    configs, random bf16 weights: LayerNorms with biases, bias-free
+    projections, the parallel residual, a tied head), each run served by
+    port BlockServers and the port client, launch counts reset and read
+    around each run's sessions (paths "falcon7b", "falcon7b_dn",
+    "falcon40b", "falcon40b_mixed"). The five kernels take any GQA group:
+    Falcon-7B's 71 query heads over one KV head and Falcon-40B's 128 over
+    8 run on them, as in the JAX package.
+
+    (a) Falcon-7B at published width and all 32 layers (71 heads of 64
+        over one KV head, vocab 65024), [0, 16) + [16, 32), `max_batch=1`:
+        2 sessions of 32 tokens from 1000-token prompts and a 16-token
+        follow-up with 2 more (16 x 71 query rows: inside the chunk
+        kernel's 2048-row budget). Tokens and last hidden states bit for
+        bit the sessions solo on one executor, held teacher-forced against
+        an f32 truth; flash 2 a layer a session (512 + 488), paged decode
+        32 and paged chunk 1 (the follow-up). Then the same sessions with
+        `server_decode=True` on one [0, 32) server given the client's
+        parameters (the fused decode loop with the LayerNorm head):
+        tokens identical to the per-step run, every decode_n call fused,
+        decode launches the layers x the server's decode_n steps.
+    (b) Falcon-40B at published width (128 heads of 64 over 8, the new
+        decoder architecture's two LayerNorms), 2 of 60 layers, written as
+        a `falcon` checkpoint in HF's grouped fused-QKV layout: servers
+        built from the directory over [0, 1) + [1, 2), the client from
+        `from_pretrained`; run 1 as (a), tokens and hidden states bit for
+        bit an in-process solo executor over the checkpoint, held against
+        an f32 truth, launches as (a); run 2 with `mixed_batch=True`,
+        `prefill_chunk=8` (a chunk and the decode rows within the ragged
+        kernel's 2048 rows x heads: 16 rows at 128 heads),
+        `max_batch=8`, BBTPU_PAGED_MIN_CONTEXT=0, a 20 ms gather window,
+        the wire uncompressed (BBTPU_WIRE_COMPRESSION=0), 8-token
+        follow-ups (one chunk each) and a third session sent once the two
+        have decoded 8 tokens: the ragged kernel at group 16, launches
+        equal to the servers' counters, held teacher-forced.
+
+    Prints the byte reckoning, each run's time to first token, per-token
+    medians and peak allocated memory, the phase's seconds, and the card's
+    name and power limit; returns the launches by path."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    from bloombee_tpu_torch.client import DistributedModelForCausalLM
+    from bloombee_tpu_torch.models.checkpoint import (
+        load_client_params,
+        load_span_params,
+    )
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"[falcon] {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"allocated before the phase")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    by_path, failures = {}, []
+    n_new, sessions = 32, 2
+
+    def bytes_line(path, spec):
+        say(f"[{path}] bytes " + json.dumps(
+            {k: round(v, 4) for k, v in falcon_bytes(spec).items()}
+        ))
+
+    def served_launches(spec):
+        per = spec.num_hidden_layers * sessions
+        return {**dict.fromkeys(KERNELS, 0), "flash_attention": 2 * per,
+                "paged_decode_attention": n_new * per,
+                "paged_chunk_attention": per}
+
+    def bitwise(path, held):
+        if not held["bit_for_bit"]:
+            failures.append(f"{path}: hidden states not bit for bit the "
+                            f"solo executor's")
+
+    def follow_ups(gen, vocab, n, t):
+        return torch.randint(0, vocab, (n, t), generator=gen,
+                             device="cuda")
+
+    # (a) Falcon-7B, all 32 layers
+    _, spec = family_config("falcon-7b", 32)
+    bytes_line("falcon7b", spec)
+    layers, client, gen = random_model(spec, torch.bfloat16, seed=97)
+    torch.cuda.synchronize()
+    say(f"[falcon7b] Falcon-7B bf16, {spec.num_hidden_layers} layers, "
+        f"H={spec.num_attention_heads} Hkv={spec.num_key_value_heads} "
+        f"hd={spec.head_dim}, {torch.cuda.memory_allocated() / 2**30:.2f} "
+        f"GiB on the card")
+    prompts = session_inputs(gen, spec.vocab_size, sessions, 1000)[0]
+    follows = follow_ups(gen, spec.vocab_size, sessions, 16)
+    local = DistributedModelForCausalLM(spec, client, None, device="cuda")
+    reset_peak()
+    run = family_run("falcon-7b", spec, prompts, follows, n_new, {},
+                     layers=layers, client=client)
+    say_peak("falcon7b")
+    solo = served_reference(layers, spec, local, prompts, follows, n_new)[0]
+    held = family_teacher_forced(layers, spec, local, prompts, follows, run,
+                                 n_new)
+    family_check(by_path, failures, "falcon7b", run, spec,
+                 [t for _, t in solo], served_launches(spec), held)
+    bitwise("falcon7b", held)
+    del solo
+    reset_peak()
+    dn = family_run(
+        "falcon-7b-dn", spec, prompts, follows, n_new,
+        {"client_params": client}, layers=layers, client=client,
+        spans=((0, spec.num_hidden_layers),),
+        client_kw={"server_decode": True, "server_decode_chunk": 32},
+    )
+    say_peak("falcon7b_dn")
+    info = dn["infos"][0]
+    want = {**served_launches(spec), "paged_decode_attention":
+            spec.num_hidden_layers * info["decode_n_steps"]}
+    family_check(by_path, failures, "falcon7b_dn", dn, spec, run["tokens"],
+                 want)
+    say(f"[falcon7b_dn] decode_n calls {info['decode_n_calls']}, fused "
+        f"{info['decode_n_fused_calls']}, steps {info['decode_n_steps']}")
+    if not info["decode_n_fused_calls"] == info["decode_n_calls"] > 0:
+        failures.append("falcon7b_dn: not every decode_n call fused")
+    del layers, client, local, run, dn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) Falcon-40B's width, 2 layers, from a checkpoint
+    config, spec = family_config("falcon-40b", 2)
+    bytes_line("falcon40b", spec)
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="bbtpu-falcon40b-"))
+    try:
+        t0 = time.perf_counter()
+        write_checkpoint(tmp, spec, seed=101, config=config)
+        say(f"[falcon40b] checkpoint written in "
+            f"{time.perf_counter() - t0:.2f} s")
+        gen = torch.Generator(device="cuda").manual_seed(103)
+        prompts = session_inputs(gen, spec.vocab_size, 3, 1000)[0]
+        follows = follow_ups(gen, spec.vocab_size, 3, 16)
+        reset_peak()
+        run = family_run("falcon-40b", spec, prompts[:sessions],
+                         follows[:sessions], n_new, {}, model_dir=tmp)
+        say_peak("falcon40b")
+        layers, _ = load_span_params(str(tmp), 0, spec.num_hidden_layers,
+                                     dtype=torch.bfloat16, device="cuda")
+        if not all("mlp_layernorm" in p for p in layers):
+            failures.append("falcon40b: the loader dropped ln_mlp")
+        local = DistributedModelForCausalLM(
+            spec, load_client_params(str(tmp), device="cuda"), None,
+            device="cuda",
+        )
+        solo = served_reference(layers, spec, local, prompts[:sessions],
+                                follows[:sessions], n_new)[0]
+        held = family_teacher_forced(layers, spec, local, prompts[:sessions],
+                                     follows[:sessions], run, n_new)
+        family_check(by_path, failures, "falcon40b", run, spec,
+                     [t for _, t in solo], served_launches(spec), held)
+        bitwise("falcon40b", held)
+        del run, solo
+
+        # uncompressed, the late prompt's 16.4 MB reach the servers while
+        # the others still decode (through zlib they arrived after the
+        # others had decoded, and nothing mixed)
+        chunk = 8
+        follows = follows[:, :chunk].contiguous()
+        reset_peak()
+        with env_set("BBTPU_PAGED_MIN_CONTEXT", "0"), \
+                env_set("BBTPU_BATCH_WINDOW_MS", "20"), \
+                env_set("BBTPU_WIRE_COMPRESSION", "0"):
+            run = family_run(
+                "falcon-40b-mixed", spec, prompts, follows, n_new,
+                {"max_batch": 8, "mixed_batch": True,
+                 "prefill_chunk": chunk},
+                model_dir=tmp, late=True,
+            )
+            say_peak("falcon40b_mixed")
+            held = family_teacher_forced(layers, spec, local, prompts,
+                                         follows, run, n_new, chunk=chunk)
+        mixed_check(by_path, failures, "falcon40b_mixed", run, spec, held)
+        del layers, local, run
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    say(f"[falcon] phase took {time.perf_counter() - t_phase:.1f} s")
+    say(card_line())
+    if failures:
+        raise AssertionError("falcon runs failed: " + "; ".join(failures))
+    return by_path
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
@@ -5353,19 +5909,30 @@ def main() -> int:
         f"cuda {torch.version.cuda}")
     card = card_line()
     say(card)
+    t_start = time.perf_counter()
+
+    def timed(label, fn, *args):
+        out = fn(*args)
+        say(f"[timing] {label} done at {time.perf_counter() - t_start:.1f} "
+            f"s")
+        return out
+
     try:
-        phase_build()
-        kernels = phase_kernels()
+        timed("phase 1 (build)", phase_build)
+        kernels = timed("phase 2 (kernels)", phase_kernels)
         if args.quick:
             say(json.dumps({"kernels": kernels}))
             return 3
-        phase_f32_path()
+        timed("phase 3 (f32 path)", phase_f32_path)
         torch.cuda.empty_cache()
-        by_path = phase_serving(args.profile)
-        by_path.update(phase_families())
-        by_path.update(phase_gemma())
-        by_path.update(phase_moe())
-        by_path.update(phase_bloom())
+        by_path = timed("phases 4-9 (Llama-3-8B)", phase_serving,
+                        args.profile)
+        for label, phase in (("phase 10 (families)", phase_families),
+                             ("phase 11 (gemma)", phase_gemma),
+                             ("phase 12 (moe)", phase_moe),
+                             ("phase 13 (bloom)", phase_bloom),
+                             ("phase 14 (falcon)", phase_falcon)):
+            by_path.update(timed(label, phase))
     except Exception:
         traceback.print_exc()
         return 1

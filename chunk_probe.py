@@ -36,7 +36,7 @@ H, HKV, HD, PS = 32, 8, 128, 16
 SLOTS = 12  # stamps per CTA
 STAMPS = (  # (file, anchor, stamp inserted before it)
     ("paged_attention.cu",
-     "  const int c = blockIdx.x, C = gridDim.x, kvh = blockIdx.y;", "P(0);"),
+     "  const HeadTile ht(gr, blockIdx.y);", "P(0);"),
     ("paged_rows.cuh", "  if (lo >= hi) {  // no row sees a key", "P(1);"),
     ("paged_rows.cuh", "    const int kbase = lo + t * TK",
      "if (t == 0) P(3);"),
@@ -72,7 +72,7 @@ extern "C" int bb_probe_zero() {{
   return (int)cudaMemcpyToSymbol(bbsplit::bb_probe, z, sizeof(z));
 }}
 extern "C" int bb_probe_clusters(int cl, int* out) {{
-  auto kernel = chunk_kernel<__nv_bfloat16, 128, 4>;
+  auto kernel = chunk_kernel<__nv_bfloat16, 128>;
   const size_t smem = StageOf<__nv_bfloat16, 128>::smem;
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);

@@ -472,6 +472,8 @@ def test_loaders_match_jax_and_hf(bloom_dir, tmp_path):
     layers, spec = t_ckpt.load_span_params(d, 0, 2, device="cpu")
     client = t_ckpt.load_client_params(d, device="cpu")
     assert spec == t_ckpt.load_spec(d) and spec.family == "bloom"
+    assert set(client) == {"embed", "norm", "lm_head",
+                           *auto.get_family("bloom").client_extras}
     sd = hf.state_dict()
     fused = sd["transformer.h.1.self_attention.query_key_value.weight"]
     per_head = fused.reshape(4, 3, 64, 256)

@@ -32,7 +32,7 @@ SHAPES = [  # (num_pages, page_size, B, Hkv)
 def test_decode_split_chunks_are_page_aligned_and_cover_once(
     num_pages, page_size, b, hkv
 ):
-    chunk, chunks = t_paged.decode_split(num_pages, page_size, b, hkv)
+    chunk, chunks = t_paged.decode_split(num_pages, page_size, b, hkv, 4)
     cap = num_pages * page_size
     assert chunk % page_size == 0 and chunk > 0
     assert 1 <= chunks <= num_pages
@@ -63,7 +63,7 @@ def test_decode_buffers_match_the_launch_on_meta(num_pages, page_size, b,
     )
     try:
         assert (chunk, chunks) == t_paged.decode_split(
-            num_pages, page_size, b, hkv
+            num_pages, page_size, b, hkv, g
         )
         if chunks == 1:
             assert part is None
@@ -103,7 +103,8 @@ def split_merge(q, k_slab, v_slab, page_table, lens, page_size, window):
     b, h, hd = q.shape
     hkv = k_slab.shape[1]
     num_pages = page_table.shape[1]
-    chunk, chunks = t_paged.decode_split(num_pages, page_size, b, hkv)
+    chunk, chunks = t_paged.decode_split(num_pages, page_size, b, hkv,
+                                         h // hkv)
     k = t_paged._gather(k_slab, page_table, page_size)  # [B, S, Hkv, hd]
     v = t_paged._gather(v_slab, page_table, page_size)
     k, v = (x.repeat_interleave(h // hkv, 2) for x in (k, v))
@@ -142,7 +143,7 @@ def test_split_and_merge_equals_the_plain_decode(window):
     and a lens=0 row exact zeros."""
     rng = np.random.default_rng(11)
     b, h, hkv, hd, ps, num_pages = 8, 8, 2, 32, 16, 64
-    chunk, chunks = t_paged.decode_split(num_pages, ps, b, hkv)
+    chunk, chunks = t_paged.decode_split(num_pages, ps, b, hkv, h // hkv)
     assert chunks > 4
     q = torch.from_numpy(rng.standard_normal((b, h, hd), np.float32))
     k_slab, v_slab = (

@@ -5,7 +5,8 @@ HF and the JAX package.
   the published Qwen3-8B, Qwen2.5-3B and Mistral-7B-v0.1 configs) equals
   the JAX spec field for field; the Gemma model types are served (their
   tests are tests/test_torch_gemma.py), and so are the MoE ones
-  (tests/test_torch_moe.py) and Bloom (tests/test_torch_bloom.py); every
+  (tests/test_torch_moe.py), Bloom (tests/test_torch_bloom.py) and Falcon
+  (tests/test_torch_falcon.py); every
   JAX family the port does not serve yet is refused naming ROADMAP Queue 1
   item 15 by the registry, `BlockServer(model_dir=...)`, `run_server.main`,
   `from_pretrained` and `LocalDraftModel.from_dir`; an unknown model_type
@@ -81,7 +82,7 @@ from test_torch_server import (  # noqa: F401  (fixtures)
 EPS = 1e-5
 BOUND_S = 60
 FAMILIES = ("mistral", "qwen2", "qwen3")
-UNPORTED = ("gemma4", "falcon")
+UNPORTED = ("gemma4",)
 
 
 def run(loop, coro):

@@ -256,9 +256,8 @@ def layers():
 def test_layer_body_serves_gemma():
     for case in LAYER_SPECS:
         assert t_body.unsupported(specs(case)[1]) is None
-    falcon = dataclasses.replace(specs("gemma2")[1], family="falcon",
-                                 parallel_attn=True, norm_type="ln")
-    assert t_body.unsupported(falcon).endswith("(ROADMAP Queue 1 item 15)")
+    shared = dataclasses.replace(specs("gemma2")[1], k_eq_v_full=True)
+    assert t_body.unsupported(shared).endswith("(ROADMAP Queue 1 item 15)")
 
 
 def test_init_block_params_makes_the_gemma_norms():

@@ -92,6 +92,7 @@ def test_port_imports_with_jax_and_the_jax_package_blocked(probe):
         "bloombee_tpu_torch.cli.health",
         "bloombee_tpu_torch.models.mixtral",
         "bloombee_tpu_torch.ops.moe",
+        "bloombee_tpu_torch.models.falcon",
     ):
         assert name in probe["modules"]
     assert len(probe["modules"]) >= 69  # every module was walked

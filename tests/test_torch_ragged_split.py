@@ -327,7 +327,7 @@ def test_int4_split_and_merge_equals_the_plain_int4_decode(window):
     and a lens=0 row exact zeros."""
     rng = np.random.default_rng(12)
     b, h, hkv, hd, ps, num_pages = 8, 8, 2, 64, 16, 64
-    chunk, chunks = t_paged.decode_split(num_pages, ps, b, hkv)
+    chunk, chunks = t_paged.decode_split(num_pages, ps, b, hkv, h // hkv)
     q = torch.from_numpy(rng.standard_normal((b, h, hd), np.float32))
     k_slab, v_slab = (
         quantize(torch.from_numpy(rng.standard_normal(

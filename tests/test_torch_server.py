@@ -313,8 +313,13 @@ def test_announce_to_jax_registry_and_rpc_info(loop, tiny_model_dir):
 @pytest.mark.parametrize("dtype,h,hkv,hd,want", [
     (torch.bfloat16, 32, 8, 128, True),
     (torch.float32, 4, 2, 64, True),
-    (torch.bfloat16, 24, 8, 128, False),  # GQA group 3
+    (torch.bfloat16, 24, 8, 128, True),  # GQA group 3
+    (torch.bfloat16, 71, 1, 64, True),  # Falcon-7B: group 71
+    (torch.float32, 128, 8, 64, True),  # Falcon-40B: group 16
+    (torch.bfloat16, 232, 8, 64, True),  # Falcon-180B: group 29
     (torch.bfloat16, 32, 8, 96, False),
+    (torch.bfloat16, 16, 8, 256, False),
+    (torch.bfloat16, 12, 8, 64, False),  # H not a multiple of Hkv
     (torch.float16, 32, 8, 128, False),
 ])
 def test_kernel_domain(dtype, h, hkv, hd, want):
@@ -372,15 +377,9 @@ def drive_routes(manager, ex, inputs):
     return outs
 
 
-@pytest.mark.parametrize("h,hkv,hd", [(6, 2, 64), (4, 2, 96)],
-                         ids=["group3", "head_dim96"])
-def test_routes_outside_kernel_domain_are_dense(monkeypatch, h, hkv, hd):
-    """With every kernel route eligible by context (BBTPU_PAGED_MIN_CONTEXT
-    0), a geometry outside the CUDA kernels' domain runs no kernel's plain
-    version: prefill, decode, chunk and ragged steps all take the dense
-    routes, as they would on the card. At group 3 the outputs match the JAX
-    executor's (its CPU route) within 1e-4."""
-    params, spec, inputs = geometry_model(h, hkv, hd)
+def counted_routes(monkeypatch) -> list:
+    """The names of the kernels' plain versions as they run (the CPU's
+    kernel routes), in call order."""
     calls = []
     for mod, name in (
         (t_flash, "flash_attention_reference"),
@@ -393,6 +392,17 @@ def test_routes_outside_kernel_domain_are_dense(monkeypatch, h, hkv, hd):
             return _fn(*a, **kw)
 
         monkeypatch.setattr(mod, name, counted)
+    return calls
+
+
+def geometry_routes(monkeypatch, h, hkv, hd):
+    """(the port executor's outputs of `drive_routes` for a 2-layer model
+    of this head geometry with every kernel route eligible by context
+    (BBTPU_PAGED_MIN_CONTEXT 0), the kernels' plain versions that ran, its
+    executor, the JAX executor's outputs on the same inputs: its CPU
+    route)."""
+    params, spec, inputs = geometry_model(h, hkv, hd)
+    calls = counted_routes(monkeypatch)
     monkeypatch.setenv("BBTPU_PAGED_MIN_CONTEXT", "0")
     manager = CacheManager(2, 32, 16, hkv, hd, dtype=torch.float32,
                            device="cpu")
@@ -400,17 +410,44 @@ def test_routes_outside_kernel_domain_are_dense(monkeypatch, h, hkv, hd):
         params_from_jax(params, device="cpu"), ModelSpec(**spec), manager,
         compute_dtype=torch.float32, device="cpu",
     )
-    assert not ex.paged_supported and not ex.flash_supported
     got = drive_routes(manager, ex, inputs)
-    assert calls == []
-    if hkv * 3 != h:
-        return
     jm = JaxManager(
         num_layers=2, num_pages=32, page_size=16, n_kv_heads=hkv,
         head_dim=hd, dtype=jnp.float32,
     )
     jex = JaxExecutor(params, JaxSpec(**spec), jm, compute_dtype=jnp.float32)
-    want = drive_routes(jm, jex, inputs)
+    return got, calls, ex, drive_routes(jm, jex, inputs)
+
+
+@pytest.mark.parametrize("h,hkv,hd", [(4, 2, 256), (4, 2, 96)],
+                         ids=["head_dim256", "head_dim96"])
+def test_routes_outside_kernel_domain_are_dense(monkeypatch, h, hkv, hd):
+    """A geometry outside the CUDA kernels' domain runs no kernel's plain
+    version: prefill, decode, chunk and ragged steps all take the dense
+    routes, as they would on the card, and match the JAX executor's
+    outputs within 1e-4."""
+    got, calls, ex, want = geometry_routes(monkeypatch, h, hkv, hd)
+    assert not ex.paged_supported and not ex.flash_supported
+    assert calls == []
+    for g, w in zip(got, want, strict=True):
+        np.testing.assert_allclose(
+            g.reshape(w.shape), w, atol=1e-4, rtol=1e-4
+        )
+
+
+def test_group3_takes_the_kernel_routes_and_matches_jax(monkeypatch):
+    """GQA group 3 (6 query heads over 2 KV heads, hd 64) is inside the
+    kernels' domain: the prefill takes the flash route, the decode the
+    paged decode route, the chunk the paged chunk route and the ragged
+    group the ragged route (their plain versions here), and the outputs
+    match the JAX executor's within 1e-4."""
+    got, calls, ex, want = geometry_routes(monkeypatch, 6, 2, 64)
+    assert ex.paged_supported and ex.flash_supported
+    assert set(calls) == {
+        "flash_attention_reference", "paged_decode_attention_reference",
+        "paged_chunk_attention_reference",
+        "paged_ragged_attention_reference",
+    }
     for g, w in zip(got, want, strict=True):
         np.testing.assert_allclose(
             g.reshape(w.shape), w, atol=1e-4, rtol=1e-4

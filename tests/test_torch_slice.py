@@ -246,6 +246,6 @@ def test_layers_subspan_and_guards_match_jax():
     with pytest.raises(ValueError, match="does not cover"):
         SpanExecutor(
             params_from_jax(params, device="cpu"),
-            ModelSpec(**SPEC, parallel_attn=True), port.manager,
+            ModelSpec(**SPEC, k_eq_v_full=True), port.manager,
             device="cpu",
         )
